@@ -1,0 +1,1 @@
+"""codec of the PyTorch port; see the package docstring."""
