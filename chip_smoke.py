@@ -11,8 +11,9 @@ production EC12P4 codemode (RS(12+4), 4 MiB shards) and on ragged
 shapes, times both with CUDA events, then drives the port's main path
 through its public entry points (encode and reconstruct of a 48 MiB
 payload, the pinned RS(12+4) fixture, the repair step with a corrupted
-survivor, blob frame verification) and checks that the path launched
-both kernels. Each phase prints one JSON line; any failure raises.
+survivor, blob frame verification), checks that the path launched
+both kernels, and times the path's entry points end to end. Each phase
+prints one JSON line; any failure raises.
 
 The last lines are the kernels' record, the card's name and power limit
 as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -85,6 +86,12 @@ def main() -> int:
             times.append(start.elapsed_time(stop))
         return statistics.median(times)
 
+    # The least time of a function: the larger of its bytes (inputs read
+    # once, outputs written once) over the HBM rate and its operations over
+    # the peak of their type. A GF(2^8) multiply-add, or one byte's step of
+    # a table CRC, has no unit of its own on the card; each is counted as
+    # two int8 operations at the int8 peak, which credits the function with
+    # the fastest integer rate the card has.
     def bound(nbytes: int, int8_ops: int) -> tuple[float, str]:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = int8_ops / INT8_OPS_PER_S * 1e3
@@ -135,7 +142,7 @@ def main() -> int:
         ms = time_ms(lambda: gf_cuda.gf_apply(coeff, x), KERNEL_REPS)
         plain_ms = time_ms(lambda: rs_kernel.gf_apply_bits(w, x), PLAIN_REPS)
         nbytes = (c + r) * s * b
-        bound_ms, bound_by = bound(nbytes, 2 * (8 * r) * (8 * c) * s * b)
+        bound_ms, bound_by = bound(nbytes, 2 * r * c * s * b)
         res = {"case": label, "R": r, "C": c, "B": b, "S": s, "equal": equal,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "gib_s": nbytes / (ms / 1e3) / 2**30,
@@ -168,8 +175,7 @@ def main() -> int:
         plain_ms = time_ms(lambda: crc32_kernel.crc32_blocks_plain(blocks), PLAIN_REPS)
         length = crc32_kernel.fit_chunk_len(1024, block_len)
         nbytes = b * block_len + 4 * b
-        # the GF(2) form of the same function: (8L x 32) bit products per chunk
-        bound_ms, bound_by = bound(nbytes, 2 * 8 * 32 * b * block_len)
+        bound_ms, bound_by = bound(nbytes, 2 * b * block_len)
         res = {"case": label, "B": b, "block_len": block_len, "chunk_len": length,
                "equal": equal, "zlib_rows_checked": int(len(rows)), "zlib_equal": zlib_equal,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -254,20 +260,48 @@ def main() -> int:
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"main path checks failed: {failed}")
+    launches = dict(_build.LAUNCHES)
 
-    # -- 5. the kernels' record ---------------------------------------------
+    # -- 5. the entry points end to end, timed ------------------------------
+    # Each time covers the whole call (kernels, views, compares, copies).
+    e2e = []
+
+    def e2e_case(label: str, fn, moved: int, least: int) -> None:
+        ms = time_ms(fn, KERNEL_REPS)
+        bound_ms = least / HBM_BYTES_PER_S * 1e3
+        e2e.append({"case": label, "ms": ms, "gib_s": moved / (ms / 1e3) / 2**30,
+                    "bound_ms": bound_ms, "bound_share": bound_ms / ms})
+
+    stripes = rand(8, n + m, SHARD)
+    e2e_case("Encoder.encode_EC12P4_B8", lambda: enc.encode(stripes),
+             moved=8 * n * SHARD, least=8 * (n + m) * SHARD)
+    del stripes
+    data = rand(4, n, SHARD)
+    surviving = torch.cat([data, rs_kernel.encode_parity(data, m)], dim=1)[:, list(plan.present)]
+    surviving = surviving.contiguous()
+    w = len(plan.wanted)
+    e2e_case("repair_step_rs12p4_bad1_7_B4", lambda: repair.repair_step(plan, surviving),
+             moved=surviving.numel(), least=(len(plan.present) + w) * SHARD * 4)
+    del data, surviving
+    many = torch.from_numpy(frames).to(dev).repeat(16, 1)  # 1024 frames of 4 blocks
+    e2e_case("verify_batch_1024x256KiB", lambda: crc32block.verify_batch(many),
+             moved=many.numel(), least=many.numel())
+    del many
+    emit({"phase": "end_to_end", "cases": e2e})
+
+    # -- 6. the kernels' record ---------------------------------------------
     gf_main, crc_main = gf_results[0], crc_results[0]
     emit({"kernels": [
         {"name": "gf_apply", "route": "cuda", "source": "cubefs_tpu_torch/csrc/gf_apply.cu",
          "replaces": "cubefs_tpu/ops/pallas_gf.py:46", "shape": gf_main["case"],
-         "launches": _build.LAUNCHES["gf_apply"], "equal": gf_main["equal"],
+         "launches": launches["gf_apply"], "equal": gf_main["equal"],
          "max_abs_err": gf_main["max_abs_err"], "ms": gf_main["ms"],
          "plain_ms": gf_main["plain_ms"], "bound_ms": gf_main["bound_ms"],
          "bound_by": gf_main["bound_by"], "library_ms": None},
         {"name": "crc32_blocks", "route": "cuda",
          "source": "cubefs_tpu_torch/csrc/crc32_blocks.cu",
          "replaces": "cubefs_tpu/ops/pallas_crc.py:44", "shape": crc_main["case"],
-         "launches": _build.LAUNCHES["crc32_blocks"], "equal": crc_main["equal"],
+         "launches": launches["crc32_blocks"], "equal": crc_main["equal"],
          "max_abs_err": crc_main["max_abs_err"], "ms": crc_main["ms"],
          "plain_ms": crc_main["plain_ms"], "bound_ms": crc_main["bound_ms"],
          "bound_by": crc_main["bound_by"], "library_ms": None},

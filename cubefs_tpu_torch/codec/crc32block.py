@@ -70,8 +70,7 @@ def verify_batch(frames: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
     if frame_len % block:
         raise CrcFrameError(f"frame length {frame_len} not whole blocks")
     recs = frames.reshape(b, frame_len // block, block)
-    payloads = recs[:, :, CRC_LEN:].reshape(-1, block - CRC_LEN)
-    crcs = crc32_kernel.crc32_blocks(payloads).reshape(recs.shape[:2])
+    crcs = crc32_kernel.crc32_blocks(recs[:, :, CRC_LEN:])  # payloads, read in place
     le = recs[:, :, :CRC_LEN].to(torch.int64) << torch.arange(
         0, 32, 8, dtype=torch.int64, device=frames.device)
     return (crcs == le.sum(-1)).all(dim=1)

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from .. import device as devlib
-from ..ops import gf256, rs_kernel
+from ..ops import rs_kernel
 
 
 class CudaEngine:
@@ -35,7 +35,7 @@ class CudaEngine:
 
     def encode_parity(self, data, n_parity: int) -> torch.Tensor:
         """(..., N, S) data -> (..., M, S) parity on the engine's device."""
-        return self.matrix_apply(gf256.parity_matrix(int(data.shape[-2]), n_parity), data)
+        return rs_kernel.encode_parity(self._on_device(data), n_parity)
 
 
 def get_engine(name: str = "cuda", device: str | torch.device | None = None) -> CudaEngine:

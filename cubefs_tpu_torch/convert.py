@@ -34,7 +34,8 @@ def from_reference(stripes: np.ndarray, n_data: int, n_parity: int, bad: list[in
     return surviving.to(dev), plan
 
 
-def bit_matrices(coeff: np.ndarray, block_len: int, chunk_len: int = 1024):
+def bit_matrices(coeff: np.ndarray, block_len: int,
+                 chunk_len: int = crc32_kernel.CHUNK_LEN):
     """Returns (w, wt, shifts) as numpy:
     w (8R, 8C) int8, the plane-major GF(2) form of ``coeff``;
     wt (8L, 32) uint8, the plane-major transposed chunk matrix of the CRC

@@ -1,6 +1,10 @@
 // Batched CRC32 (IEEE, bit-identical to zlib.crc32) of equal-length blocks:
-//   out[b] = crc32(in[b, 0:block_len]),  block_len = n_chunks * chunk_len
-// in (B, block_len) uint8 contiguous, out (B,) uint32 zeroed by the caller.
+//   out[i * inner + j] = crc32(in[i, j, 0:block_len]),
+//   block_len = n_chunks * chunk_len
+// in (outer, inner, block_len) uint8 with byte strides (outer_stride,
+// inner_stride, 1), so strided views (a frame's payloads past their CRC
+// words, some rows of a stripe) are read in place; out (outer * inner,)
+// uint32 zeroed by the caller.
 //
 // Replaces cubefs_tpu/ops/pallas_crc.py:_crc_kernel (launched by _parts_fn
 // for crc32_blocks_pallas) together with its jnp epilogue _fold_fn: the TPU
@@ -22,9 +26,9 @@
 // block's word with atomicXor: XOR commutes, so the order of the atomics
 // does not change a bit. The k = 0 thread also XORs in crc32 of block_len
 // zero bytes, the affine part, so no second pass is needed. Loads are
-// 16-byte vectors when chunk_len and the base are 16-byte aligned, single
-// bytes otherwise (the blob framing's 65,532-byte payloads give
-// chunk_len = 762).
+// 16-byte vectors when chunk_len, the base and both strides are 16-byte
+// aligned, single bytes otherwise (the blob framing's 65,532-byte payloads
+// give chunk_len = 762, and start 4 bytes into their block).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,7 +39,8 @@ constexpr uint32_t kPolyReflected = 0xEDB88320u;
 
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-crc32_chunks_kernel(const uint8_t* __restrict__ in, uint32_t* __restrict__ out,
+crc32_chunks_kernel(const uint8_t* __restrict__ in, long long outer_stride, int inner,
+                    long long inner_stride, uint32_t* __restrict__ out,
                     const uint32_t* __restrict__ shift_cols, uint32_t zeros_crc,
                     long long total_chunks, int n_chunks, int chunk_len) {
   __shared__ uint32_t table[256];
@@ -51,7 +56,9 @@ crc32_chunks_kernel(const uint8_t* __restrict__ in, uint32_t* __restrict__ out,
   if (g >= total_chunks) return;
   const long long blk = g / n_chunks;
   const int k = (int)(g - blk * n_chunks);
-  const uint8_t* p = in + g * chunk_len;
+  const long long i = blk / inner;
+  const uint8_t* p = in + i * outer_stride + (blk - i * inner) * inner_stride +
+                     (long long)k * chunk_len;
 
   uint32_t crc = 0;
   if (kVec) {
@@ -80,23 +87,26 @@ crc32_chunks_kernel(const uint8_t* __restrict__ in, uint32_t* __restrict__ out,
 
 }  // namespace
 
-extern "C" int crc32_blocks_launch(const void* in, void* out, const void* shift_cols,
-                                   unsigned int zeros_crc, int B, int n_chunks,
-                                   int chunk_len, void* stream) {
-  if (B <= 0 || n_chunks <= 0) return 0;
-  const long long total = (long long)B * n_chunks;
+extern "C" int crc32_blocks_launch(const void* in, int outer, int inner,
+                                   long long outer_stride, long long inner_stride,
+                                   void* out, const void* shift_cols,
+                                   unsigned int zeros_crc, int n_chunks, int chunk_len,
+                                   void* stream) {
+  if (outer <= 0 || inner <= 0 || n_chunks <= 0) return 0;
+  const long long total = (long long)outer * inner * n_chunks;
   const unsigned grid = (unsigned)((total + kThreads - 1) / kThreads);
-  const bool vec = chunk_len % 16 == 0 && (uintptr_t)in % 16 == 0;
+  const bool vec = chunk_len % 16 == 0 && (uintptr_t)in % 16 == 0 &&
+                   outer_stride % 16 == 0 && inner_stride % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
   const uint8_t* x = (const uint8_t*)in;
   uint32_t* y = (uint32_t*)out;
   const uint32_t* cols = (const uint32_t*)shift_cols;
   if (vec)
-    crc32_chunks_kernel<true><<<grid, kThreads, 0, st>>>(x, y, cols, zeros_crc, total,
-                                                        n_chunks, chunk_len);
+    crc32_chunks_kernel<true><<<grid, kThreads, 0, st>>>(
+        x, outer_stride, inner, inner_stride, y, cols, zeros_crc, total, n_chunks, chunk_len);
   else
-    crc32_chunks_kernel<false><<<grid, kThreads, 0, st>>>(x, y, cols, zeros_crc, total,
-                                                         n_chunks, chunk_len);
+    crc32_chunks_kernel<false><<<grid, kThreads, 0, st>>>(
+        x, outer_stride, inner, inner_stride, y, cols, zeros_crc, total, n_chunks, chunk_len);
   return (int)cudaGetLastError();
 }
 

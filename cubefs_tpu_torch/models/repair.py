@@ -58,7 +58,7 @@ def _step_rows(plan: RepairPlan) -> np.ndarray:
         list(plan.wanted) + list(plan.present[plan.n_data:]))
 
 
-def repair_step(plan: RepairPlan, surviving: torch.Tensor, chunk_len: int = 1024):
+def repair_step(plan: RepairPlan, surviving: torch.Tensor):
     """Fused repair: reconstruct + integrity check + CRC, on the device
     that holds ``surviving``.
 
@@ -69,18 +69,14 @@ def repair_step(plan: RepairPlan, surviving: torch.Tensor, chunk_len: int = 1024
     unsigned CRC32 of each recovered shard, ok (B,) bool). ok compares
     the extra survivors with their reconstruction from the first n_data:
     the worker's check before writeback (True when no extras were read).
+    ``recovered`` is a view of the step's one GF output, and the CRC reads
+    it in place.
     """
     if surviving.dim() != 3 or surviving.shape[1] != len(plan.present):
         raise ValueError(f"surviving must be (B, {len(plan.present)}, S), got "
                          f"{tuple(surviving.shape)}")
     n, w = plan.n_data, len(plan.wanted)
-    b, _, s = surviving.shape
     out = rs_kernel.gf_matrix_apply(_step_rows(plan), surviving[:, :n, :])
-    if out.shape[1] > w:
-        recovered = out[:, :w].contiguous()
-        ok = (out[:, w:] == surviving[:, n:, :]).reshape(b, -1).all(dim=1)
-    else:
-        recovered = out
-        ok = torch.ones(b, dtype=torch.bool, device=surviving.device)
-    crcs = crc32_kernel.crc32_blocks(recovered.reshape(b * w, s), chunk_len).reshape(b, w)
-    return recovered, crcs, ok
+    recovered = out[:, :w]
+    ok = (out[:, w:] == surviving[:, n:, :]).flatten(1).all(dim=1)
+    return recovered, crc32_kernel.crc32_blocks(recovered), ok

@@ -35,9 +35,10 @@ KERNELS = {
     # (in, in_stripe_stride, out, coeff, R, C, S, B, stream)
     "gf_apply": ("gf_apply.cu", "gf_apply_launch",
                  [_P, _LL, _P, _P, _I, _I, _LL, _I, _P]),
-    # (in, out, shift_cols, zeros_crc, B, n_chunks, chunk_len, stream)
+    # (in, outer, inner, outer_stride, inner_stride, out, shift_cols, zeros_crc,
+    #  n_chunks, chunk_len, stream)
     "crc32_blocks": ("crc32_blocks.cu", "crc32_blocks_launch",
-                     [_P, _P, _P, _U, _I, _I, _I, _P]),
+                     [_P, _I, _I, _LL, _LL, _P, _P, _U, _I, _I, _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -29,6 +29,11 @@ from . import bitlin
 
 _POLY_REFLECTED = 0xEDB88320
 
+# Target chunk length of ``crc32_blocks``: the largest divisor of the
+# block length up to it is used. It sets how a block is cut up, never the
+# result.
+CHUNK_LEN = 1024
+
 # Peak-memory budget for the plain version's bit-unpack intermediate:
 # 32 bytes per payload byte (8 float32 bits). Larger batches run in
 # slices of whole blocks.
@@ -194,39 +199,40 @@ def pack_crc_bits(bits: torch.Tensor) -> torch.Tensor:
     return (bits.to(torch.int64) << pow2).sum(-1)
 
 
-def crc32_blocks_plain(blocks: torch.Tensor, chunk_len: int = 1024) -> torch.Tensor:
-    """Plain PyTorch version of the CRC kernel. blocks: (B, block_len)
-    uint8 -> (B,) int64 CRC32 values, bit-identical to zlib.crc32.
+def crc32_blocks_plain(blocks: torch.Tensor, chunk_len: int = CHUNK_LEN) -> torch.Tensor:
+    """Plain PyTorch version of the CRC kernel. blocks: (..., block_len)
+    uint8 -> (...) int64 CRC32 values, bit-identical to zlib.crc32.
 
     Batches whose bit unpack would pass the memory budget run in slices
     of whole blocks (at least one block per slice)."""
-    b, block_len = blocks.shape
+    *lead, block_len = blocks.shape
+    flat = blocks.reshape(-1, block_len)
     chunk_len = fit_chunk_len(chunk_len, block_len)
     const = torch.as_tensor(_state_bits(crc32_zeros(block_len)).astype(np.int32),
                             device=blocks.device)
     micro = max(1, _UNPACK_BUDGET_BYTES // (32 * block_len))
-    out = torch.empty(b, dtype=torch.int64, device=blocks.device)
-    for i in range(0, b, micro):
-        linear = linear_crc_bits(blocks[i : i + micro], chunk_len)
+    out = torch.empty(flat.shape[0], dtype=torch.int64, device=blocks.device)
+    for i in range(0, flat.shape[0], micro):
+        linear = linear_crc_bits(flat[i : i + micro], chunk_len)
         out[i : i + micro] = pack_crc_bits(linear ^ const)
-    return out
+    return out.reshape(lead)
 
 
-def crc32_blocks(blocks: torch.Tensor, chunk_len: int = 1024) -> torch.Tensor:
+def crc32_blocks(blocks: torch.Tensor) -> torch.Tensor:
     """Batched zlib-compatible CRC32 of equal-length blocks.
 
-    blocks: (B, block_len) uint8 -> (B,) int64 holding each block's
-    unsigned CRC32. chunk_len is a target: the largest divisor of
-    block_len <= chunk_len is used. A CUDA tensor goes to the CUDA kernel;
-    a CPU tensor to the plain PyTorch version.
+    blocks: (..., block_len) uint8 -> (...) int64 holding each block's
+    unsigned CRC32. A CUDA tensor goes to the CUDA kernel, which reads
+    strided leading dims in place; a CPU tensor to the plain PyTorch
+    version.
     """
-    if blocks.dim() != 2 or blocks.dtype != torch.uint8:
-        raise ValueError(f"blocks must be (B, block_len) uint8, got "
+    if blocks.dim() < 2 or blocks.dtype != torch.uint8:
+        raise ValueError(f"blocks must be (..., B, block_len) uint8, got "
                          f"{tuple(blocks.shape)} {blocks.dtype}")
     if blocks.is_cuda:
         from . import crc_cuda
 
-        return crc_cuda.crc32_blocks(blocks, chunk_len)
+        return crc_cuda.crc32_blocks(blocks)
     if blocks.device.type != "cpu":
         raise ValueError(f"unsupported device {blocks.device}")
-    return crc32_blocks_plain(blocks, chunk_len)
+    return crc32_blocks_plain(blocks)

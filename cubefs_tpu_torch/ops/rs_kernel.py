@@ -74,7 +74,8 @@ def gf_matrix_apply(coeff: np.ndarray, shards: torch.Tensor) -> torch.Tensor:
     the shards' device. The coefficient matrix is a runtime argument of
     the kernel: a new erasure pattern compiles nothing."""
     coeff = np.ascontiguousarray(coeff, dtype=np.uint8)
-    if coeff.ndim != 2 or shards.dim() < 2 or shards.shape[-2] != coeff.shape[1]:
+    if (coeff.ndim != 2 or not coeff.shape[1] or shards.dim() < 2
+            or shards.shape[-2] != coeff.shape[1]):
         raise ValueError(f"coefficient matrix {coeff.shape} does not apply to "
                          f"shards {tuple(shards.shape)}")
     if shards.dtype != torch.uint8:

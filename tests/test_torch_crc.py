@@ -30,13 +30,26 @@ def _zlib(blocks: np.ndarray) -> np.ndarray:
 def test_crc_blocks_match_zlib_jax_and_pallas(b, block_len, chunk):
     rng = np.random.default_rng(block_len + b)
     blocks = rng.integers(0, 256, (b, block_len), dtype=np.uint8)
-    got = crc32_kernel.crc32_blocks(torch.from_numpy(blocks), chunk).numpy()
+    got = crc32_kernel.crc32_blocks_plain(torch.from_numpy(blocks), chunk).numpy()
     assert got.dtype == np.int64
+    if chunk == crc32_kernel.CHUNK_LEN:
+        assert np.array_equal(crc32_kernel.crc32_blocks(torch.from_numpy(blocks)).numpy(), got)
     assert np.array_equal(got, _zlib(blocks))
     assert np.array_equal(got, np.asarray(ref_crc.crc32_blocks(blocks, chunk)).astype(np.int64))
     pallas = np.asarray(pallas_crc.crc32_blocks_pallas(blocks, chunk_len=chunk, tile_blocks=8,
                                                        interpret=True))
     assert np.array_equal(got, pallas.astype(np.int64))
+
+
+def test_crc_blocks_take_leading_dims_and_strided_views():
+    """(B, W, block_len) and strided views (payloads past their CRC
+    words, some rows of a stripe) give one CRC per block."""
+    rng = np.random.default_rng(5)
+    stripes = rng.integers(0, 256, (3, 4, 1028), dtype=np.uint8)
+    view = torch.from_numpy(stripes)[:, 1:3, 4:]
+    got = crc32_kernel.crc32_blocks(view).numpy()
+    assert got.shape == (3, 2)
+    assert np.array_equal(got.ravel(), _zlib(stripes[:, 1:3, 4:].reshape(-1, 1024)))
 
 
 def test_blob_payload_chunk_fit():
@@ -53,7 +66,7 @@ def test_micro_batched_path(b, monkeypatch):
     monkeypatch.setattr(crc32_kernel, "_UNPACK_BUDGET_BYTES", 3 * 32 * 2048)
     rng = np.random.default_rng(b)
     blocks = rng.integers(0, 256, (b, 2048), dtype=np.uint8)
-    got = crc32_kernel.crc32_blocks(torch.from_numpy(blocks), 512).numpy()
+    got = crc32_kernel.crc32_blocks_plain(torch.from_numpy(blocks), 512).numpy()
     assert np.array_equal(got, _zlib(blocks))
 
 
@@ -84,7 +97,7 @@ def test_shift_columns_pack_shift_matrices():
 def test_extent_combine_chain_over_block_crcs():
     rng = np.random.default_rng(11)
     blocks = rng.integers(0, 256, (6, 512), dtype=np.uint8)
-    crcs = crc32_kernel.crc32_blocks(torch.from_numpy(blocks), 128).tolist()
+    crcs = crc32_kernel.crc32_blocks_plain(torch.from_numpy(blocks), 128).tolist()
     combined = 0
     for c in crcs:
         combined = crc32_kernel.crc32_combine(combined, c, 512)

@@ -120,3 +120,12 @@ def test_crc_kernel_matches_zlib_on_card(cuda_device, block_len):
     blocks = rng.integers(0, 256, (5, block_len), dtype=np.uint8)
     got = crc32_kernel.crc32_blocks(torch.from_numpy(blocks).to(cuda_device)).cpu().numpy()
     assert got.tolist() == [zlib.crc32(r.tobytes()) for r in blocks]
+
+
+@pytest.mark.cuda
+def test_crc_kernel_reads_strided_views_on_card(cuda_device):
+    rng = np.random.default_rng(9)
+    stripes = rng.integers(0, 256, (3, 4, 4100), dtype=np.uint8)
+    view = torch.from_numpy(stripes).to(cuda_device)[:, 1:3, 4:]
+    got = crc32_kernel.crc32_blocks(view).cpu().numpy()
+    assert got.tolist() == [[zlib.crc32(r.tobytes()) for r in s] for s in stripes[:, 1:3, 4:]]
