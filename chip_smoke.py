@@ -5,15 +5,17 @@ Run from the root of a checkout on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's two CUDA kernels from the sources in the checkout,
+It builds the port's CUDA kernels from the sources in the checkout,
 holds each against its plain PyTorch version at the width of the
 production EC12P4 codemode (RS(12+4), 4 MiB shards) and on ragged
-shapes, times both with CUDA events, then drives the port's main path
+shapes, times them with CUDA events, then drives the port's main path
 through its public entry points (encode and reconstruct of a 48 MiB
 payload, the pinned RS(12+4) fixture, the repair step with a corrupted
 survivor, blob frame verification), checks that the path launched
-both kernels, and times the path's entry points end to end. Each phase
-prints one JSON line; any failure raises.
+both of its kernels, and times the path's entry points end to end.
+Last it drives the GF tuning path (``tuning/gf_tuning.py``, both
+rounds), which runs the bit-matrix tensor-core kernels, and checks that
+it launched them. Each phase prints one JSON line; any failure raises.
 
 The last lines are the kernels' record, the card's name and power limit
 as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -23,9 +25,10 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
+import itertools
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -41,6 +44,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 KERNEL_REPS = 10
 PLAIN_REPS = 3
+MAIN_KERNELS = ("gf_apply", "crc32_blocks")  # repair_step and Encoder run these
 
 
 def emit(obj) -> None:
@@ -59,7 +63,10 @@ def main() -> int:
     from cubefs_tpu_torch.codec import crc32block
     from cubefs_tpu_torch.codec.encoder import CodecConfig, new_encoder
     from cubefs_tpu_torch.models import repair
-    from cubefs_tpu_torch.ops import _build, crc32_kernel, crc_cuda, gf256, gf_cuda, rs_kernel
+    from cubefs_tpu_torch.ops import (_build, crc32_kernel, crc_cuda, gf256, gf_bitmajor,
+                                      gf_cuda, rs_kernel)
+    from cubefs_tpu_torch.tuning import gf_tuning
+    from cubefs_tpu_torch.utils.benchtime import timed_ms as time_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -71,20 +78,6 @@ def main() -> int:
 
     def rand(*shape) -> torch.Tensor:
         return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
-
-    def time_ms(fn, reps: int) -> float:
-        fn()  # warm-up
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            stop.record()
-            stop.synchronize()
-            times.append(start.elapsed_time(stop))
-        return statistics.median(times)
 
     # The least time of a function: the larger of its bytes (inputs read
     # once, outputs written once) over the HBM rate and its operations over
@@ -104,7 +97,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build_s = _build.build()
     ptxas = {}
-    for name in _build.KERNELS:
+    for name in build_s:  # one library per source
         log = os.path.join(_build.BUILD_DIR, f"{name}.log")
         if os.path.exists(log):
             with open(log) as f:
@@ -128,6 +121,7 @@ def main() -> int:
         ("encode_rs12p4_ragged_B2", gf256.parity_matrix(n, m), rand(2, n, SHARD + 123)),
         ("random_36x36_B1", rng.integers(0, 256, (36, 36), dtype=np.uint8), rand(1, 36, SHARD)),
     ]
+    coeff_36x36 = gf_cases[-1][1]
     gf_results = []
     for label, coeff, x in gf_cases:
         r, c = coeff.shape
@@ -188,7 +182,58 @@ def main() -> int:
     emit({"phase": "crc32_blocks", "cases": crc_results})
     torch.cuda.empty_cache()
 
-    # -- 4. the main path, through the entry points --------------------------
+    # -- 4. gf_bitmajor / gf_bitmajor_probe (kernels C, D) vs plain ------
+    # Every instantiation: extraction x grid for the apply and nodot, grid
+    # for noext (it extracts nothing). The bound is the function's, as for
+    # gf_apply; mma_floor_ms is the bit-matrix form's own int8 work,
+    # 2 * 8R * 8C * S * B at the int8 peak, which is not a bound.
+    tile = gf_bitmajor.DEFAULT_TILE
+    bm_x = rand(4, n, SHARD)
+    bm_cases = [
+        ("tuning_rows_2x12_B4", np.ascontiguousarray(plan.rows, dtype=np.uint8), bm_x),
+        ("repair_step_rows_4x12_B4", step_rows, bm_x),
+        ("step_rows_ragged_B2", step_rows, rand(2, n, SHARD + 123)),
+        ("random_36x36_B1", coeff_36x36, rand(1, 36, SHARD)),
+    ]
+    bm_results, bm_bad = [], []
+    for label, coeff, x in bm_cases:
+        r, c = coeff.shape
+        b, s = x.shape[0], x.shape[-1]
+        nbytes = (c + r) * s * b
+        bound_ms, bound_by = bound(nbytes, 2 * r * c * s * b)
+        mma_floor_ms = 2 * 8 * r * 8 * c * s * b / INT8_OPS_PER_S * 1e3
+        for probe in (None, "nodot", "noext"):
+            want = gf_bitmajor.plain(coeff, x, probe)
+            plain_ms = time_ms(lambda: gf_bitmajor.plain(coeff, x, probe), PLAIN_REPS)
+            extracts = ("bcast",) if probe == "noext" else ("loop", "bcast", "bool")
+            for extract, grid in itertools.product(extracts, gf_bitmajor.GRIDS):
+                kw = {"tile": tile, "extract": extract, "grid": grid}
+                fn = (functools.partial(gf_bitmajor.bitmajor_apply, coeff, x, **kw)
+                      if probe is None else
+                      functools.partial(gf_bitmajor.bitmajor_probe, coeff, x, probe=probe, **kw))
+                got = fn()
+                torch.cuda.synchronize()
+                equal = bool(torch.equal(got, want))
+                err = max_abs_err(got, want)
+                del got
+                ms = time_ms(fn, KERNEL_REPS)
+                res = {"case": label, "kernel": "gf_bitmajor_probe" if probe else "gf_bitmajor",
+                       "extract": extract, "grid": grid, "probe": probe, "tile": tile,
+                       "R": r, "C": c, "B": b, "S": s, "equal": equal, "max_abs_err": err,
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "mma_floor_ms": mma_floor_ms,
+                       "gib_s": nbytes / (ms / 1e3) / 2**30, "bound_share": bound_ms / ms}
+                bm_results.append(res)
+                if not equal:
+                    bm_bad.append(res)
+            del want
+    emit({"phase": "gf_bitmajor", "cases": bm_results})
+    if bm_bad:
+        raise AssertionError(f"bit-matrix kernels disagree with their plain versions: {bm_bad}")
+    del bm_x, bm_cases
+    torch.cuda.empty_cache()
+
+    # -- 5. the main path, through the entry points --------------------------
     _build.reset_launches()
     t_main = time.perf_counter()
     path = {}
@@ -255,14 +300,16 @@ def main() -> int:
         "repair_ok": path["repair_ok"] == [True] * 4,
         "repair_detects_corrupt": path["repair_ok_corrupt"] == [True, True, False, True],
         "frames": valid == [i != 5 for i in range(64)],
-        "launched_every_kernel": all(v > 0 for v in _build.LAUNCHES.values()),
+        "launched_both_kernels": all(_build.LAUNCHES[k] > 0 for k in MAIN_KERNELS),
+        "no_bitmajor_kernel_on_main_path": all(
+            v == 0 for k, v in _build.LAUNCHES.items() if k not in MAIN_KERNELS),
     }
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"main path checks failed: {failed}")
     launches = dict(_build.LAUNCHES)
 
-    # -- 5. the entry points end to end, timed ------------------------------
+    # -- 6. the entry points end to end, timed ------------------------------
     # Each time covers the whole call (kernels, views, compares, copies).
     e2e = []
 
@@ -289,8 +336,30 @@ def main() -> int:
     del many
     emit({"phase": "end_to_end", "cases": e2e})
 
-    # -- 6. the kernels' record ---------------------------------------------
+    # -- 7. the GF tuning path: both rounds of tuning/gf_tuning.py ----------
+    _build.reset_launches()
+    tuning = {}
+    for round_ in (1, 2):
+        records = gf_tuning.sweep(round_, dev)
+        best = gf_tuning.best(records)
+        tuning[round_] = records
+        emit({"phase": "gf_tuning", "round": round_, "records": records, "best": best})
+        print("BEST:", json.dumps(best), flush=True)
+        errors = [rec for rec in records if "error" in rec]
+        if errors or best is None:
+            raise AssertionError(f"tuning round {round_} had failing variants: {errors}")
+    tuning_launches = dict(_build.LAUNCHES)
+    if not (tuning_launches["gf_bitmajor"] > 0 and tuning_launches["gf_bitmajor_probe"] > 0):
+        raise AssertionError(f"the tuning path did not launch both bit-matrix kernels: "
+                             f"{tuning_launches}")
+
+    # -- 8. the kernels' record ---------------------------------------------
     gf_main, crc_main = gf_results[0], crc_results[0]
+    bm_main = next(x for x in bm_results if x["case"] == "tuning_rows_2x12_B4"
+                   and x["probe"] is None and x["extract"] == "bcast" and x["grid"] == "flat")
+    probe_main = next(x for x in bm_results if x["case"] == "tuning_rows_2x12_B4"
+                      and x["probe"] == "nodot" and x["extract"] == "bcast"
+                      and x["grid"] == "stripe")
     emit({"kernels": [
         {"name": "gf_apply", "route": "cuda", "source": "cubefs_tpu_torch/csrc/gf_apply.cu",
          "replaces": "cubefs_tpu/ops/pallas_gf.py:46", "shape": gf_main["case"],
@@ -305,6 +374,15 @@ def main() -> int:
          "max_abs_err": crc_main["max_abs_err"], "ms": crc_main["ms"],
          "plain_ms": crc_main["plain_ms"], "bound_ms": crc_main["bound_ms"],
          "bound_by": crc_main["bound_by"], "library_ms": None},
+        *({"name": rec["kernel"], "route": "cuda",
+           "source": "cubefs_tpu_torch/csrc/gf_bitmajor.cu", "replaces": replaces,
+           "shape": f'{rec["case"]} {rec["extract"]}/{rec["grid"]}/{rec["probe"]} tile {tile}',
+           "path": "gf_tuning", "launches": tuning_launches[rec["kernel"]],
+           "equal": rec["equal"], "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+           "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+           "bound_by": rec["bound_by"], "library_ms": None}
+          for rec, replaces in ((bm_main, "benchmarks/pallas_tuning.py:41"),
+                                (probe_main, "benchmarks/pallas_tuning2.py:56"))),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ pattern. ``from_reference`` puts a stripe batch laid out as the JAX
 package lays it out on the port's device, with the port's RepairPlan
 built from the same numbers ``cubefs_tpu.models.repair.make_plan``
 takes. ``bit_matrices`` returns the GF(2) matrices the plain versions
-apply, so a test can hold them against the reference's.
+apply, so a test can hold them against the reference's, and
+``bitmajor_operand`` (defined beside its kernel in ``ops/gf_bitmajor.py``)
+the same GF(2) matrix in the order the tensor-core kernel reads it.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from . import device as devlib
 from .models import repair
 from .ops import crc32_kernel, rs_kernel
+from .ops.gf_bitmajor import bitmajor_operand  # noqa: F401  (re-exported)
 
 
 def from_reference(stripes: np.ndarray, n_data: int, n_parity: int, bad: list[int],

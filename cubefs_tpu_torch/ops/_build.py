@@ -5,7 +5,8 @@ pointers, sizes and a CUDA stream, launches its kernel and returns
 ``cudaGetLastError()``. The sources are compiled for Hopper
 (``sm_90a``) at first use into ``cubefs_tpu_torch/_build/``, one shared
 library per source, named by a hash of the sources and flags so an edit
-rebuilds and an unchanged tree reuses the library. ``build()`` starts
+rebuilds and an unchanged tree reuses the library. Several kernel names
+may share one source (each with its own C launcher). ``build()`` starts
 one nvcc per missing library, all at once.
 
 ``LAUNCHES`` counts successful kernel launches per kernel. ``launch()``
@@ -39,6 +40,12 @@ KERNELS = {
     #  n_chunks, chunk_len, stream)
     "crc32_blocks": ("crc32_blocks.cu", "crc32_blocks_launch",
                      [_P, _I, _I, _LL, _LL, _P, _P, _U, _I, _I, _P]),
+    # (in, in_stripe_stride, out, w, R, C, S, B, tile, extract, stream)
+    "gf_bitmajor": ("gf_bitmajor.cu", "gf_bitmajor_launch",
+                    [_P, _LL, _P, _P, _I, _I, _LL, _I, _I, _I, _P]),
+    # (in, in_stripe_stride, out, w, R, C, S, B, tile, extract, probe, stream)
+    "gf_bitmajor_probe": ("gf_bitmajor.cu", "gf_bitmajor_probe_launch",
+                          [_P, _LL, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -61,33 +68,40 @@ def nvcc() -> str:
     return path
 
 
+def _stem(name: str) -> str:
+    return os.path.splitext(KERNELS[name][0])[0]
+
+
 def lib_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for fn in sorted(os.listdir(SRC_DIR)):
         if fn == KERNELS[name][0] or fn.endswith(".cuh"):
             with open(os.path.join(SRC_DIR, fn), "rb") as f:
                 h.update(fn.encode() + f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{_stem(name)}-{h.hexdigest()[:16]}.so")
 
 
 def build(names=None) -> dict[str, float]:
     """Compile every named kernel whose library is missing, one nvcc per
     source, all started together. Returns seconds per kernel built (0.0
     where the library was already there); raises with nvcc's output if
-    a build fails. ptxas' register and shared-memory report lands in
-    ``_build/<name>.log``."""
-    names = list(KERNELS if names is None else names)
+    a build fails. Names are reported by source (``gf_bitmajor`` for both
+    kernels of ``gf_bitmajor.cu``). ptxas' register and shared-memory
+    report lands in ``_build/<source>.log``."""
+    by_source = {}  # one kernel name per source stands for its library
+    for n in (KERNELS if names is None else names):
+        by_source.setdefault(_stem(n), n)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    started, secs = {}, {name: 0.0 for name in names}
-    for name in names:
-        out = lib_path(name)
+    started, secs = {}, {stem: 0.0 for stem in by_source}
+    for stem, kernel in by_source.items():
+        out = lib_path(kernel)
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(SRC_DIR, KERNELS[name][0])]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(SRC_DIR, KERNELS[kernel][0])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)
-        started[name] = (proc, tmp, out, time.perf_counter())
+        started[stem] = (proc, tmp, out, time.perf_counter())
     failed = []
     for name, (proc, tmp, out, t0) in started.items():
         log, _ = proc.communicate()
@@ -111,7 +125,7 @@ def _launcher(name: str):
             fn = getattr(lib, KERNELS[name][1])
             fn.argtypes = KERNELS[name][2]
             fn.restype = ctypes.c_int
-            err = getattr(lib, f"{name}_error_string")
+            err = getattr(lib, f"{_stem(name)}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             _launchers[name], _errstr[name] = fn, err

@@ -18,7 +18,8 @@ from cubefs_tpu_torch import convert, device
 from cubefs_tpu_torch.codec import codemode as tcm
 from cubefs_tpu_torch.codec import engine
 from cubefs_tpu_torch.codec.encoder import CodecConfig, new_encoder
-from cubefs_tpu_torch.ops import _build, crc32_kernel, crc_cuda, gf256, gf_cuda, rs_kernel
+from cubefs_tpu_torch.ops import (_build, crc32_kernel, crc_cuda, gf256, gf_bitmajor, gf_cuda,
+                                  rs_kernel)
 
 PKG = os.path.dirname(os.path.abspath(cubefs_tpu_torch.__file__))
 ROOT = os.path.dirname(PKG)
@@ -80,6 +81,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         gf_cuda.gf_apply(gf256.parity_matrix(6, 3), torch.zeros((6, 64), dtype=torch.uint8))
     with pytest.raises(ValueError, match="CUDA kernel"):
         crc_cuda.crc32_blocks(torch.zeros((2, 64), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        gf_bitmajor.bitmajor_apply(gf256.parity_matrix(6, 3), torch.zeros((6, 64), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        gf_bitmajor.bitmajor_probe(gf256.parity_matrix(6, 3), torch.zeros((6, 64), dtype=torch.uint8),
+                                   probe="noext")
     assert _build.LAUNCHES == before
 
 
@@ -87,6 +93,7 @@ def test_kernel_library_named_by_source_hash(monkeypatch):
     path = _build.lib_path("gf_apply")
     assert os.path.dirname(path) == _build.BUILD_DIR
     assert path == _build.lib_path("gf_apply") != _build.lib_path("crc32_blocks")
+    assert _build.lib_path("gf_bitmajor") == _build.lib_path("gf_bitmajor_probe") != path
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build.lib_path("gf_apply") != path
     monkeypatch.setenv("CUDA_HOME", os.path.join(ROOT, "no-such-toolkit"))
