@@ -7,8 +7,11 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 It builds the port's CUDA kernels from the sources in the checkout,
 holds each against its plain PyTorch version at the width of the
-production EC12P4 codemode (RS(12+4), 4 MiB shards) and on ragged
-shapes, times them with CUDA events, then drives the port's main path
+production EC12P4 codemode (RS(12+4), 4 MiB shards) and on the edges
+of their designs (ragged and unaligned shards, parity written in place,
+strided and unaligned CRC blocks of odd lengths), times each whole call
+with CUDA events (``ms``) and each kernel alone from the profiler's CUDA
+trace (``device_ms``, host work excluded), then drives the port's main path
 through its public entry points (encode and reconstruct of a 48 MiB
 payload, the pinned RS(12+4) fixture, the repair step with a corrupted
 survivor, blob frame verification), checks that the path launched
@@ -45,6 +48,9 @@ INT8_OPS_PER_S = 1979e12
 KERNEL_REPS = 10
 PLAIN_REPS = 3
 MAIN_KERNELS = ("gf_apply", "crc32_blocks")  # repair_step and Encoder run these
+# the C and D instantiations the kernels' record reports: (case, extract, probe, grid)
+RECORDED_BM = (("tuning_rows_2x12_B4", "bcast", None, "flat"),
+               ("tuning_rows_2x12_B4", "bcast", "nodot", "stripe"))
 
 
 def emit(obj) -> None:
@@ -66,6 +72,7 @@ def main() -> int:
     from cubefs_tpu_torch.ops import (_build, crc32_kernel, crc_cuda, gf256, gf_bitmajor,
                                       gf_cuda, rs_kernel)
     from cubefs_tpu_torch.tuning import gf_tuning
+    from cubefs_tpu_torch.utils.benchtime import device_ms, kernel_ms
     from cubefs_tpu_torch.utils.benchtime import timed_ms as time_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -111,75 +118,98 @@ def main() -> int:
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0)})
 
     # -- 2. gf_apply vs plain ------------------------------------------------
+    # ms is the whole wrapper call between CUDA events; device_ms the
+    # kernel's own time from the profiler's CUDA trace (host excluded),
+    # and bound_share is taken from device_ms.
     n, m = 12, 4
     plan = repair.make_plan(n, m, [1, 7])
     step_rows = repair._step_rows(plan)  # recovery + extra-survivor rows, as repair_step applies them
     surviving = rand(4, len(plan.present), SHARD)
-    gf_cases = [
-        ("repair_rs12p4_bad1_7_B4", step_rows, surviving[:, :n, :]),
-        ("encode_rs12p4_B8", gf256.parity_matrix(n, m), rand(8, n, SHARD)),
-        ("encode_rs12p4_ragged_B2", gf256.parity_matrix(n, m), rand(2, n, SHARD + 123)),
-        ("random_36x36_B1", rng.integers(0, 256, (36, 36), dtype=np.uint8), rand(1, 36, SHARD)),
+    in_place = rand(8, n + m, SHARD)  # encode straight into the stripes' parity rows
+    in_place_data = in_place[:, :n].clone()
+    unaligned = rand(3 * (SHARD + 5) + 1)[1:].view(3, 1, SHARD + 5)  # base 1 byte off
+    gf_cases = [  # (label, coeff, shards, out)
+        ("repair_rs12p4_bad1_7_B4", step_rows, surviving[:, :n, :], None),
+        ("encode_rs12p4_B8", gf256.parity_matrix(n, m), rand(8, n, SHARD), None),
+        ("encode_rs12p4_in_place_B8", gf256.parity_matrix(n, m), in_place[:, :n],
+         in_place[:, n:]),
+        ("encode_rs12p4_ragged_B2", gf256.parity_matrix(n, m), rand(2, n, SHARD + 123), None),
+        ("random_36x36_B1", rng.integers(0, 256, (36, 36), dtype=np.uint8), rand(1, 36, SHARD),
+         None),
+        ("one_row_one_col_ragged_unaligned_B3", rng.integers(1, 256, (1, 1), dtype=np.uint8),
+         unaligned, None),
     ]
-    coeff_36x36 = gf_cases[-1][1]
+    coeff_36x36 = gf_cases[4][1]
     gf_results = []
-    for label, coeff, x in gf_cases:
+    for label, coeff, x, out in gf_cases:
         r, c = coeff.shape
         b, s = x.shape[0], x.shape[-1]
         w = torch.from_numpy(rs_kernel.coeff_bits(coeff))
-        got = gf_cuda.gf_apply(coeff, x)
+        call = functools.partial(gf_cuda.gf_apply, coeff, x, out=out)
+        got = call()
         want = rs_kernel.gf_apply_bits(w, x)
         torch.cuda.synchronize()
         equal = bool(torch.equal(got, want))
+        if out is not None:  # written in place, the data rows untouched
+            equal = equal and got is out and bool(torch.equal(in_place[:, :n], in_place_data))
         err = max_abs_err(got, want)
         del got, want
-        ms = time_ms(lambda: gf_cuda.gf_apply(coeff, x), KERNEL_REPS)
+        ms = time_ms(call, KERNEL_REPS)
+        dev_ms = device_ms(call, KERNEL_REPS, "gf_apply_kernel")
         plain_ms = time_ms(lambda: rs_kernel.gf_apply_bits(w, x), PLAIN_REPS)
         nbytes = (c + r) * s * b
         bound_ms, bound_by = bound(nbytes, 2 * r * c * s * b)
-        res = {"case": label, "R": r, "C": c, "B": b, "S": s, "equal": equal,
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "gib_s": nbytes / (ms / 1e3) / 2**30,
-               "bound_share": bound_ms / ms}
+        res = {"case": label, "R": r, "C": c, "B": b, "S": s, "out_view": out is not None,
+               "equal": equal, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "gib_s": nbytes / (dev_ms / 1e3) / 2**30, "bound_share": bound_ms / dev_ms}
         gf_results.append(res)
         if not equal:
             raise AssertionError(f"gf_apply disagrees with its plain version: {res}")
     emit({"phase": "gf_apply", "cases": gf_results})
-    del surviving, gf_cases
+    del surviving, gf_cases, in_place, in_place_data, unaligned
 
     # -- 3. crc32_blocks vs plain and zlib -------------------------------
-    crc_cases = [
-        ("blocks_10000x128KiB", 10000, 128 << 10),
-        ("blob_payloads_2048x65532", 2048, (64 << 10) - 4),
-        ("repair_shards_8x4MiB", 8, SHARD),
+    frame_rows = rand(512, 4, 64 << 10)  # blob frames: payloads 4 bytes into their blocks
+    crc_cases = [  # (label, blocks)
+        ("blocks_10000x128KiB", rand(10000, 128 << 10)),
+        ("blob_payloads_2048x65532", rand(2048, (64 << 10) - 4)),
+        ("repair_shards_8x4MiB", rand(8, SHARD)),
+        ("frame_payload_views_512x4x65532", frame_rows[:, :, 4:]),
+        ("odd_blocks_1000x1001", rand(1000, 1001)),
+        ("short_blocks_4096x15", rand(4096, 15)),
     ]
     crc_results = []
-    for label, b, block_len in crc_cases:
-        blocks = rand(b, block_len)
+    for label, blocks in crc_cases:
+        block_len = blocks.shape[-1]
+        b = blocks.numel() // block_len
         got = crc_cuda.crc32_blocks(blocks)
         want = crc32_kernel.crc32_blocks_plain(blocks)
         equal = bool(torch.equal(got, want))
         rows = np.sort(rng.choice(b, size=min(b, 256), replace=False))
-        host = blocks[torch.from_numpy(rows).to(dev)].cpu().numpy()
-        got_rows = got.cpu().numpy()[rows]
+        host = blocks.reshape(b, block_len)[torch.from_numpy(rows).to(dev)].cpu().numpy()
+        got_rows = got.reshape(b).cpu().numpy()[rows]
         zlib_equal = all(int(g) == zlib.crc32(row.tobytes()) for g, row in zip(got_rows, host))
         err = max_abs_err(got, want)
         del got, want, host
-        ms = time_ms(lambda: crc_cuda.crc32_blocks(blocks), KERNEL_REPS)
+        call = functools.partial(crc_cuda.crc32_blocks, blocks)
+        ms = time_ms(call, KERNEL_REPS)
+        dev_ms = device_ms(call, KERNEL_REPS, "crc32_span_kernel")
         plain_ms = time_ms(lambda: crc32_kernel.crc32_blocks_plain(blocks), PLAIN_REPS)
-        length = crc32_kernel.fit_chunk_len(1024, block_len)
+        span = crc_cuda.plan(block_len)
         nbytes = b * block_len + 4 * b
         bound_ms, bound_by = bound(nbytes, 2 * b * block_len)
-        res = {"case": label, "B": b, "block_len": block_len, "chunk_len": length,
+        res = {"case": label, "B": b, "block_len": block_len, "rows": span.rows,
+               "n_spans": span.n_spans, "strides": list(blocks.stride()),
                "equal": equal, "zlib_rows_checked": int(len(rows)), "zlib_equal": zlib_equal,
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "gb_s": nbytes / (ms / 1e3) / 1e9,
-               "bound_share": bound_ms / ms}
+               "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "gb_s": nbytes / (dev_ms / 1e3) / 1e9, "bound_share": bound_ms / dev_ms}
         crc_results.append(res)
-        del blocks
         if not (equal and zlib_equal):
             raise AssertionError(f"crc32_blocks disagrees: {res}")
     emit({"phase": "crc32_blocks", "cases": crc_results})
+    del crc_cases, frame_rows
     torch.cuda.empty_cache()
 
     # -- 4. gf_bitmajor / gf_bitmajor_probe (kernels C, D) vs plain ------
@@ -223,6 +253,8 @@ def main() -> int:
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "mma_floor_ms": mma_floor_ms,
                        "gib_s": nbytes / (ms / 1e3) / 2**30, "bound_share": bound_ms / ms}
+                if (label, extract, probe, grid) in RECORDED_BM:
+                    res["device_ms"] = device_ms(fn, KERNEL_REPS, "gf_bitmajor")
                 bm_results.append(res)
                 if not equal:
                     bm_bad.append(res)
@@ -310,14 +342,22 @@ def main() -> int:
     launches = dict(_build.LAUNCHES)
 
     # -- 6. the entry points end to end, timed ------------------------------
-    # Each time covers the whole call (kernels, views, compares, copies).
+    # Each ms covers the whole call (host work, kernels, views, compares).
     e2e = []
 
+    # Beside the whole call, the device time of each kernel it ran (from
+    # the profiler's CUDA trace), their sum, and the share of the call the
+    # device was busy.
     def e2e_case(label: str, fn, moved: int, least: int) -> None:
         ms = time_ms(fn, KERNEL_REPS)
+        kernels = kernel_ms(fn, KERNEL_REPS)
+        busy_ms = sum(kernels.values())
         bound_ms = least / HBM_BYTES_PER_S * 1e3
         e2e.append({"case": label, "ms": ms, "gib_s": moved / (ms / 1e3) / 2**30,
-                    "bound_ms": bound_ms, "bound_share": bound_ms / ms})
+                    "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+                    "device_ms": busy_ms, "device_busy_share": busy_ms / ms,
+                    "kernels_ms": {name[:80]: t for name, t in
+                                   sorted(kernels.items(), key=lambda kv: -kv[1])}})
 
     stripes = rand(8, n + m, SHARD)
     e2e_case("Encoder.encode_EC12P4_B8", lambda: enc.encode(stripes),
@@ -355,31 +395,31 @@ def main() -> int:
 
     # -- 8. the kernels' record ---------------------------------------------
     gf_main, crc_main = gf_results[0], crc_results[0]
-    bm_main = next(x for x in bm_results if x["case"] == "tuning_rows_2x12_B4"
-                   and x["probe"] is None and x["extract"] == "bcast" and x["grid"] == "flat")
-    probe_main = next(x for x in bm_results if x["case"] == "tuning_rows_2x12_B4"
-                      and x["probe"] == "nodot" and x["extract"] == "bcast"
-                      and x["grid"] == "stripe")
+    bm_main, probe_main = (next(x for x in bm_results
+                                if (x["case"], x["extract"], x["probe"], x["grid"]) == key)
+                           for key in RECORDED_BM)
     emit({"kernels": [
         {"name": "gf_apply", "route": "cuda", "source": "cubefs_tpu_torch/csrc/gf_apply.cu",
          "replaces": "cubefs_tpu/ops/pallas_gf.py:46", "shape": gf_main["case"],
          "launches": launches["gf_apply"], "equal": gf_main["equal"],
          "max_abs_err": gf_main["max_abs_err"], "ms": gf_main["ms"],
-         "plain_ms": gf_main["plain_ms"], "bound_ms": gf_main["bound_ms"],
+         "device_ms": gf_main["device_ms"], "plain_ms": gf_main["plain_ms"],
+         "bound_ms": gf_main["bound_ms"],
          "bound_by": gf_main["bound_by"], "library_ms": None},
         {"name": "crc32_blocks", "route": "cuda",
          "source": "cubefs_tpu_torch/csrc/crc32_blocks.cu",
          "replaces": "cubefs_tpu/ops/pallas_crc.py:44", "shape": crc_main["case"],
          "launches": launches["crc32_blocks"], "equal": crc_main["equal"],
          "max_abs_err": crc_main["max_abs_err"], "ms": crc_main["ms"],
-         "plain_ms": crc_main["plain_ms"], "bound_ms": crc_main["bound_ms"],
+         "device_ms": crc_main["device_ms"], "plain_ms": crc_main["plain_ms"],
+         "bound_ms": crc_main["bound_ms"],
          "bound_by": crc_main["bound_by"], "library_ms": None},
         *({"name": rec["kernel"], "route": "cuda",
            "source": "cubefs_tpu_torch/csrc/gf_bitmajor.cu", "replaces": replaces,
            "shape": f'{rec["case"]} {rec["extract"]}/{rec["grid"]}/{rec["probe"]} tile {tile}',
            "path": "gf_tuning", "launches": tuning_launches[rec["kernel"]],
            "equal": rec["equal"], "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-           "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+           "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
            "bound_by": rec["bound_by"], "library_ms": None}
           for rec, replaces in ((bm_main, "benchmarks/pallas_tuning.py:41"),
                                 (probe_main, "benchmarks/pallas_tuning2.py:56"))),

@@ -88,8 +88,8 @@ class Encoder:
         """Fill parity rows from data rows; returns the same tensor."""
         shards = self._check(shards)
         n, m = self.t.n, self.t.m
-        if m:
-            shards[..., n : n + m, :] = self.engine.encode_parity(shards[..., :n, :], m)
+        if m:  # the kernel writes the parity rows in place
+            self.engine.encode_parity(shards[..., :n, :], m, out=shards[..., n : n + m, :])
         if self.cfg.enable_verify and not self.verify(shards):
             raise VerifyError("parity verify failed after encode")
         return shards

@@ -33,9 +33,11 @@ class CudaEngine:
         """(R, C) GF matrix x (..., C, S) shards -> (..., R, S) on the engine's device."""
         return rs_kernel.gf_matrix_apply(coeff, self._on_device(shards))
 
-    def encode_parity(self, data, n_parity: int) -> torch.Tensor:
-        """(..., N, S) data -> (..., M, S) parity on the engine's device."""
-        return rs_kernel.encode_parity(self._on_device(data), n_parity)
+    def encode_parity(self, data, n_parity: int, out: torch.Tensor | None = None
+                      ) -> torch.Tensor:
+        """(..., N, S) data -> (..., M, S) parity on the engine's device,
+        written into ``out`` if given."""
+        return rs_kernel.encode_parity(self._on_device(data), n_parity, out=out)
 
 
 def get_engine(name: str = "cuda", device: str | torch.device | None = None) -> CudaEngine:

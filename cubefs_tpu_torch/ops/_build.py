@@ -33,13 +33,14 @@ _P, _I, _U, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlon
 
 # name -> (source, C launcher, launcher argtypes)
 KERNELS = {
-    # (in, in_stripe_stride, out, coeff, R, C, S, B, stream)
+    # (in, in_stripe_stride, out, out_stripe_stride, out_row_stride, products,
+    #  R, C, S, B, stream)
     "gf_apply": ("gf_apply.cu", "gf_apply_launch",
-                 [_P, _LL, _P, _P, _I, _I, _LL, _I, _P]),
-    # (in, outer, inner, outer_stride, inner_stride, out, shift_cols, zeros_crc,
-    #  n_chunks, chunk_len, stream)
+                 [_P, _LL, _P, _LL, _LL, _P, _I, _I, _LL, _I, _P]),
+    # (in, outer, inner, outer_stride, inner_stride, out, tables, span_cols,
+    #  zeros_crc, block_len, rows, n_spans, stream)
     "crc32_blocks": ("crc32_blocks.cu", "crc32_blocks_launch",
-                     [_P, _I, _I, _LL, _LL, _P, _P, _U, _I, _I, _P]),
+                     [_P, _I, _I, _LL, _LL, _P, _P, _P, _U, _LL, _I, _I, _P]),
     # (in, in_stripe_stride, out, w, R, C, S, B, tile, extract, stream)
     "gf_bitmajor": ("gf_bitmajor.cu", "gf_bitmajor_launch",
                     [_P, _LL, _P, _P, _I, _I, _LL, _I, _I, _I, _P]),
@@ -47,6 +48,10 @@ KERNELS = {
     "gf_bitmajor_probe": ("gf_bitmajor.cu", "gf_bitmajor_probe_launch",
                           [_P, _LL, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _P]),
 }
+
+# the __global__ functions the sources define: the profiler names the
+# record of each launch by its kernel's symbol, which holds one of these
+SYMBOLS = ("gf_apply_kernel", "crc32_span_kernel", "gf_bitmajor_kernel")
 
 LAUNCHES = {name: 0 for name in KERNELS}
 

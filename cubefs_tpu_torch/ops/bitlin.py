@@ -5,7 +5,7 @@ bit-matrix L_c maps the bits of x to the bits of c*x. An (R, C) GF(2^8)
 matrix is therefore one (8R, 8C) 0/1 matrix, and applying it to shard
 bytes is a 0/1 matrix product with mod-2 accumulation. The port's plain
 PyTorch path (``rs_kernel.gf_apply_bits``) computes exactly that; the
-CUDA kernel computes the same bytes from nibble tables instead.
+CUDA kernel computes the same bytes with SWAR bit masks instead.
 
 Bit order: LSB-first within a byte. Byte-major row ``b*8+k`` holds bit k
 of byte b; plane-major row ``k*n+b`` holds the same bit (``bitmajor_perm``).

@@ -11,7 +11,8 @@ matrices, crc32_zeros, crc32_combine and fit_chunk_len, copied from the
 JAX package's ``cubefs_tpu/ops/crc32_kernel.py``.
 
 Device half: ``crc32_blocks`` sends a CUDA tensor to the hand-written
-kernel (``crc_cuda``, ``csrc/crc32_blocks.cu``) and a CPU tensor to the
+kernel (``crc_cuda``, ``csrc/crc32_blocks.cu``, which cuts blocks into
+its own spans and needs no chunk length) and a CPU tensor to the
 plain PyTorch version, ``crc32_blocks_plain``: the chunk bits times the
 (8L, 32) chunk matrix, then the fold with the shift matrices, both as
 float32 products of 0/1 values (exact: sums stay far below 2^24).
@@ -29,7 +30,7 @@ from . import bitlin
 
 _POLY_REFLECTED = 0xEDB88320
 
-# Target chunk length of ``crc32_blocks``: the largest divisor of the
+# Target chunk length of the plain version: the largest divisor of the
 # block length up to it is used. It sets how a block is cut up, never the
 # result.
 CHUNK_LEN = 1024
@@ -123,7 +124,7 @@ def shift_matrices(chunk_len: int, n_chunks: int) -> np.ndarray:
 def shift_columns(chunk_len: int, n_chunks: int) -> np.ndarray:
     """shift_matrices as 32 uint32 column masks per chunk position:
     entry [k, i] has bit j set where matrix k has a 1 at row j, column i
-    (the form the CUDA kernel takes)."""
+    (the form the CUDA kernel takes, one chunk per span)."""
     m = shift_matrices(chunk_len, n_chunks).astype(np.uint64)
     cols = (m << np.arange(32, dtype=np.uint64)[None, :, None]).sum(axis=1)
     out = cols.astype(np.uint32)
@@ -146,8 +147,10 @@ def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
     return crc_m1_zeros ^ crc2 ^ crc32_zeros(len2)
 
 
+@functools.cache
 def fit_chunk_len(chunk_len: int, total_len: int) -> int:
-    """Largest divisor of total_len that is <= chunk_len (>= 1)."""
+    """Largest divisor of total_len that is <= chunk_len (>= 1); cached,
+    since the search is O(sqrt(total_len)) Python."""
     if total_len <= chunk_len:
         return total_len
     best = 1

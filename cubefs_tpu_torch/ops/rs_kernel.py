@@ -69,10 +69,13 @@ def gf_apply_bits(w_bits: torch.Tensor, shards: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, r, s)
 
 
-def gf_matrix_apply(coeff: np.ndarray, shards: torch.Tensor) -> torch.Tensor:
+def gf_matrix_apply(coeff: np.ndarray, shards: torch.Tensor,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
     """shards: (..., C, S) uint8, coeff: (R, C) GF(2^8) -> (..., R, S) on
     the shards' device. The coefficient matrix is a runtime argument of
-    the kernel: a new erasure pattern compiles nothing."""
+    the kernel: a new erasure pattern compiles nothing. ``out``, a
+    (..., R, S) uint8 view that does not overlap ``shards``, receives the
+    result in place (the kernel writes it directly) and is returned."""
     coeff = np.ascontiguousarray(coeff, dtype=np.uint8)
     if (coeff.ndim != 2 or not coeff.shape[1] or shards.dim() < 2
             or shards.shape[-2] != coeff.shape[1]):
@@ -81,15 +84,23 @@ def gf_matrix_apply(coeff: np.ndarray, shards: torch.Tensor) -> torch.Tensor:
     if shards.dtype != torch.uint8:
         raise ValueError(f"shards must be uint8, got {shards.dtype}")
     if shards.is_cuda:
-        return gf_cuda.gf_apply(coeff, shards)
+        return gf_cuda.gf_apply(coeff, shards, out=out)
     if shards.device.type != "cpu":
         raise ValueError(f"unsupported device {shards.device}")
-    return gf_apply_bits(torch.from_numpy(coeff_bits(coeff)), shards)
+    y = gf_apply_bits(torch.from_numpy(coeff_bits(coeff)), shards)
+    if out is None:
+        return y
+    if out.shape != y.shape or out.dtype != y.dtype or out.device != y.device:
+        raise ValueError(f"out must be a {tuple(y.shape)} uint8 tensor on {y.device}, got "
+                         f"{tuple(out.shape)} {out.dtype} on {out.device}")
+    return out.copy_(y)
 
 
-def encode_parity(data: torch.Tensor, n_parity: int) -> torch.Tensor:
-    """data: (..., N, S) uint8 -> parity (..., M, S) uint8."""
-    return gf_matrix_apply(gf256.parity_matrix(int(data.shape[-2]), n_parity), data)
+def encode_parity(data: torch.Tensor, n_parity: int,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """data: (..., N, S) uint8 -> parity (..., M, S) uint8, written into
+    ``out`` if given."""
+    return gf_matrix_apply(gf256.parity_matrix(int(data.shape[-2]), n_parity), data, out=out)
 
 
 def reconstruct_rows(

@@ -7,7 +7,7 @@ shipped Pallas kernel. Same shape: the recovery rows of RS(12+4) with
 shards 1 and 7 lost, (2, 12), applied to survivors of shape (4, 12, 4 MiB)
 drawn from ``np.random.default_rng(5)``. Variants:
 
-round 1  base         A as shipped (``csrc/gf_apply.cu``, nibble tables)
+round 1  base         A as shipped (``csrc/gf_apply.cu``, SWAR bit masks)
          bitmajor     C, int32 extraction (per byte), one launch per stripe
          bitmajor-u8  C, u8 extraction (SWAR on 32-bit words), per stripe
          flatgrid     C, u8 extraction, one launch with stripes in the grid

@@ -8,8 +8,11 @@ the elapsed time between two events is the device's own time and no
 slope is needed to cancel a fixed cost. ``timed_slope`` keeps the
 reference's meaning (seconds per chained iteration) for callers that
 chain a function into itself; ``timed_ms`` is the plain measurement.
+``kernel_ms`` and ``device_ms`` exclude the host: they read the
+kernels' durations from ``torch.profiler``'s CUDA activity trace (CUPTI).
 
-Both need a CUDA device and raise without one.
+The timers need a CUDA device and raise without one; ``whole``, the
+check that a profiler trace kept all its records, is plain Python.
 """
 
 from __future__ import annotations
@@ -17,6 +20,10 @@ from __future__ import annotations
 import statistics
 
 import torch
+
+from ..ops import _build
+
+TRACE_TRIES = 3
 
 
 def _require_cuda() -> None:
@@ -41,6 +48,70 @@ def timed_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
     return statistics.median(_events_ms(fn) for _ in range(reps))
+
+
+def _trace(fn, reps: int) -> dict[str, tuple[int, float]]:
+    """Kernel name -> (records, milliseconds summed) in the profiler's CUDA
+    activity trace of ``reps`` runs of ``fn()``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, tuple[int, float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, ms = out.get(e.name, (0, 0.0))
+            out[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    return out
+
+
+def whole(one: dict[str, tuple[int, float]], many: dict[str, tuple[int, float]], reps: int,
+          launched: int) -> bool:
+    """Whether two traces of the same function, of one run and of ``reps``
+    runs, hold all their records: the port's kernels (``_build.SYMBOLS``)
+    have ``launched`` records in the first, and every name has ``reps``
+    times as many records in the second as in the first."""
+    ours = sum(n for name, (n, _) in one.items() if any(k in name for k in _build.SYMBOLS))
+    return ours == launched and all(
+        many.get(name, (0, 0.0))[0] == reps * one.get(name, (0, 0.0))[0]
+        for name in one.keys() | many.keys())
+
+
+def kernel_ms(fn, reps: int) -> dict[str, float]:
+    """Device milliseconds per run of ``fn()`` by kernel name (memsets and
+    copies included): the durations in the profiler's CUDA activity trace
+    of ``reps`` runs after one warm-up run, summed per name and divided by
+    ``reps``. Host work is not in it.
+
+    A CUPTI trace now and then loses records, and a lossy trace would read
+    low, so one is kept only when it is ``whole`` against a trace of one
+    run and the launches one run adds to ``_build.LAUNCHES``. Otherwise
+    both are taken again, up to ``TRACE_TRIES`` times in all; then this
+    raises."""
+    _require_cuda()
+    before = sum(_build.LAUNCHES.values())
+    fn()
+    torch.cuda.synchronize()
+    launched = sum(_build.LAUNCHES.values()) - before
+    for _ in range(TRACE_TRIES):
+        one, many = _trace(fn, 1), _trace(fn, reps)
+        if whole(one, many, reps, launched):
+            return {name: ms / reps for name, (_, ms) in many.items()}
+    raise RuntimeError(f"{TRACE_TRIES} profiler traces in a row lost CUDA records")
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Device milliseconds per run of ``fn()`` spent in the CUDA kernels
+    whose name contains ``kernel`` (``kernel_ms``); the host work of
+    ``fn`` and its other kernels are excluded. Raises if ``fn`` ran no
+    such kernel."""
+    times = [ms for name, ms in kernel_ms(fn, reps).items() if kernel in name]
+    if not times:
+        raise RuntimeError(f"the profiler recorded no CUDA kernel named like {kernel!r}")
+    return sum(times)
 
 
 def timed_slope(fn, x, k1: int, k2: int, repeats: int = 3) -> float:

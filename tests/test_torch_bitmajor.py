@@ -226,3 +226,26 @@ def test_sweep_and_timers_need_a_gpu():
         benchtime.timed_ms(lambda: None, 3)
     with pytest.raises(RuntimeError, match="CUDA"):
         benchtime.timed_slope(lambda a: a, torch.zeros(1), 1, 2)
+
+
+_GF = "void (anonymous namespace)::gf_apply_kernel<true>(unsigned char const*, ...)"
+_FILL = "void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<long>, ...>"
+
+
+@pytest.mark.parametrize("one,many,launched,whole", [
+    ({_GF: (1, 0.1), _FILL: (2, 0.01)}, {_GF: (10, 1.0), _FILL: (20, 0.1)}, 1, True),
+    ({_GF: (1, 0.1), _FILL: (2, 0.01)}, {_GF: (9, 0.9), _FILL: (20, 0.1)}, 1, False),
+    ({_GF: (1, 0.1), _FILL: (2, 0.01)}, {_GF: (10, 1.0)}, 1, False),
+    ({_FILL: (2, 0.01)}, {_FILL: (20, 0.1)}, 1, False),
+    ({_GF: (1, 0.1)}, {_GF: (10, 1.0), _FILL: (20, 0.1)}, 1, False),
+    ({_FILL: (2, 0.01)}, {_FILL: (20, 0.1)}, 0, True),
+    ({}, {}, 0, True),
+])
+def test_profiler_trace_is_whole_only_with_every_record(one, many, launched, whole):
+    """A trace of 10 runs is kept only if it holds 10 times the records
+    of a trace of one run, name by name, and that one holds a record of
+    each launch of the port's kernels."""
+    assert benchtime.whole(one, many, 10, launched) is whole
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            benchtime.kernel_ms(lambda: None, 10)
