@@ -32,6 +32,7 @@ import functools
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -55,6 +56,24 @@ RECORDED_BM = (("tuning_rows_2x12_B4", "bcast", None, "flat"),
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def ptxas_registers(log: str) -> dict[str, int]:
+    """Mangled kernel name -> registers per thread, from the ``-Xptxas -v``
+    report nvcc wrote while building a source (none if the library was
+    built without it)."""
+    regs, name = {}, None
+    if not os.path.exists(log):
+        return regs
+    with open(log) as f:
+        for ln in f:
+            m = re.search(r"Compiling entry function '([^']+)'", ln)
+            if m:
+                name = m.group(1)
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and name:
+                regs[name], name = int(m.group(1)), None
+    return regs
 
 
 def main() -> int:
@@ -105,7 +124,7 @@ def main() -> int:
     build_s = _build.build()
     ptxas = {}
     for name in build_s:  # one library per source
-        log = os.path.join(_build.BUILD_DIR, f"{name}.log")
+        log = _build.log_path(name)
         if os.path.exists(log):
             with open(log) as f:
                 ptxas[name] = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
@@ -216,8 +235,13 @@ def main() -> int:
     # Every instantiation: extraction x grid for the apply and nodot, grid
     # for noext (it extracts nothing). The bound is the function's, as for
     # gf_apply; mma_floor_ms is the bit-matrix form's own int8 work,
-    # 2 * 8R * 8C * S * B at the int8 peak, which is not a bound.
+    # 2 * 8R * 8C * S * B at the int8 peak, which is not a bound. device_ms
+    # for the bcast/flat apply and probes of every case and the recorded
+    # instantiations; beside each, ptxas' registers of its template
+    # instantiation and the blocks an SM holds (the persistent grid is that
+    # times the SMs).
     tile = gf_bitmajor.DEFAULT_TILE
+    bm_regs = ptxas_registers(_build.log_path("gf_bitmajor"))
     bm_x = rand(4, n, SHARD)
     bm_cases = [
         ("tuning_rows_2x12_B4", np.ascontiguousarray(plan.rows, dtype=np.uint8), bm_x),
@@ -247,14 +271,22 @@ def main() -> int:
                 err = max_abs_err(got, want)
                 del got
                 ms = time_ms(fn, KERNEL_REPS)
+                e, p = gf_bitmajor.EXTRACTS[extract], gf_bitmajor.PROBES.get(probe, 0)
                 res = {"case": label, "kernel": "gf_bitmajor_probe" if probe else "gf_bitmajor",
                        "extract": extract, "grid": grid, "probe": probe, "tile": tile,
                        "R": r, "C": c, "B": b, "S": s, "equal": equal, "max_abs_err": err,
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "mma_floor_ms": mma_floor_ms,
-                       "gib_s": nbytes / (ms / 1e3) / 2**30, "bound_share": bound_ms / ms}
-                if (label, extract, probe, grid) in RECORDED_BM:
+                       "gib_s": nbytes / (ms / 1e3) / 2**30, "bound_share": bound_ms / ms,
+                       "registers": next((v for k, v in bm_regs.items()
+                                          if f"gf_bitmajor_kernelILi{e}ELi{p}EE" in k), None),
+                       "blocks_per_sm": gf_bitmajor.blocks_per_sm(r, c, tile, extract, probe),
+                       "ring_stages": gf_bitmajor.ring_stages(r, c, tile),
+                       "smem_bytes": gf_bitmajor.smem_bytes(r, c, tile)}
+                if ((extract, grid) == ("bcast", "flat")
+                        or (label, extract, probe, grid) in RECORDED_BM):
                     res["device_ms"] = device_ms(fn, KERNEL_REPS, "gf_bitmajor")
+                    res["device_bound_share"] = bound_ms / res["device_ms"]
                 bm_results.append(res)
                 if not equal:
                     bm_bad.append(res)

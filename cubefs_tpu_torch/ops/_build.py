@@ -86,13 +86,19 @@ def lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{_stem(name)}-{h.hexdigest()[:16]}.so")
 
 
+def log_path(name: str) -> str:
+    """nvcc's output (ptxas' register and shared-memory report) of the
+    build of ``lib_path(name)``, beside it under the same hashed name."""
+    return os.path.splitext(lib_path(name))[0] + ".log"
+
+
 def build(names=None) -> dict[str, float]:
     """Compile every named kernel whose library is missing, one nvcc per
     source, all started together. Returns seconds per kernel built (0.0
     where the library was already there); raises with nvcc's output if
     a build fails. Names are reported by source (``gf_bitmajor`` for both
     kernels of ``gf_bitmajor.cu``). ptxas' register and shared-memory
-    report lands in ``_build/<source>.log``."""
+    report lands in ``log_path``."""
     by_source = {}  # one kernel name per source stands for its library
     for n in (KERNELS if names is None else names):
         by_source.setdefault(_stem(n), n)
@@ -106,12 +112,12 @@ def build(names=None) -> dict[str, float]:
         cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(SRC_DIR, KERNELS[kernel][0])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)
-        started[stem] = (proc, tmp, out, time.perf_counter())
+        started[stem] = (proc, tmp, out, log_path(kernel), time.perf_counter())
     failed = []
-    for name, (proc, tmp, out, t0) in started.items():
+    for name, (proc, tmp, out, log_file, t0) in started.items():
         log, _ = proc.communicate()
         secs[name] = time.perf_counter() - t0
-        with open(os.path.join(BUILD_DIR, f"{name}.log"), "w") as f:
+        with open(log_file, "w") as f:
             f.write(log)
         if proc.returncode:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
@@ -120,6 +126,12 @@ def build(names=None) -> dict[str, float]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return secs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of a kernel's source, built first if missing."""
+    _launcher(name)
+    return ctypes.CDLL(lib_path(name))  # the loader hands back the same handle
 
 
 def _launcher(name: str):

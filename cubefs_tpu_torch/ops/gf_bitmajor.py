@@ -22,11 +22,14 @@ Variant names are the reference's. ``extract``: ``int32`` and ``loop``
 32-bit word of four bytes), ``bool`` (compare with the plane's mask).
 ``grid``: ``stripe`` (one launch per stripe, the reference's vmap) or
 ``flat`` (one launch, stripes in the grid, the reference's flatgrid).
-``tile``: columns of S per thread block, a multiple of 32.
+``tile``: columns of S per work item, a multiple of 32. The kernel is
+persistent: its blocks walk the (stripe, tile) items, and each block's
+input ring holds ``ring_stages`` tiles of the C shard rows.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -41,7 +44,8 @@ PROBES = {"nodot": 1, "noext": 2}
 DEFAULT_TILE = 1024
 # Shared memory a block may opt in to on an H100 (232,448 bytes).
 MAX_SMEM_BYTES = 227 << 10
-_MAX_GRID_Y = 65535
+MAX_STAGES = 3  # the input ring's depth where shared memory allows
+OUT_STAGES = 2  # output stages: one is written out while the next item computes
 
 
 def padded(r: int, c: int) -> tuple[int, int]:
@@ -51,12 +55,40 @@ def padded(r: int, c: int) -> tuple[int, int]:
     return r + r % 2, -(-c // 4) * 4
 
 
-def smem_bytes(r: int, c: int, tile: int) -> int:
-    """Dynamic shared memory of one block: W in fragment order, the staged
-    (Cpad, tile) byte tile and the (Rpad, tile) output stage. Mirrors
-    ``smem_bytes`` in the CUDA source."""
+def _smem(r: int, c: int, tile: int, stages: int) -> int:
     rpad, cpad = padded(r, c)
-    return 64 * rpad * cpad + (cpad + rpad) * tile
+    return 16 * MAX_STAGES + 64 * rpad * cpad + stages * cpad * tile + OUT_STAGES * rpad * tile
+
+
+def ring_stages(r: int, c: int, tile: int) -> int:
+    """Depth of the kernel's input ring: 3 (Cpad, tile) stages where they
+    fit in ``MAX_SMEM_BYTES``, else 2. Mirrors ``ring_stages`` in the CUDA
+    source."""
+    return MAX_STAGES if _smem(r, c, tile, MAX_STAGES) <= MAX_SMEM_BYTES else 2
+
+
+def smem_bytes(r: int, c: int, tile: int) -> int:
+    """Dynamic shared memory of one block at ``ring_stages`` depth: the
+    ring's mbarriers, W in fragment order, the input ring of raw (Cpad,
+    tile) byte tiles and two (Rpad, tile) output stages. Over
+    ``MAX_SMEM_BYTES`` the launch is refused. Mirrors ``smem_bytes`` in
+    the CUDA source."""
+    return _smem(r, c, tile, ring_stages(r, c, tile))
+
+
+def blocks_per_sm(r: int, c: int, tile: int, extract: str = "bcast",
+                  probe: str | None = None) -> int:
+    """Blocks of one variant an SM of the current CUDA device holds at
+    (r, c, tile), from its registers and shared memory (the CUDA
+    occupancy calculator). The persistent grid of a launch is this times
+    the SMs, capped at the work items (stripes x tiles)."""
+    query = _build.library("gf_bitmajor").gf_bitmajor_blocks_per_sm
+    query.argtypes = [ctypes.c_int] * 5
+    query.restype = ctypes.c_int
+    n = query(r, c, tile, EXTRACTS[extract], 0 if probe is None else PROBES[probe])
+    if n < 0:
+        raise RuntimeError(f"gf_bitmajor occupancy query failed: CUDA error {-n}")
+    return n
 
 
 def bitmajor_operand(coeff: np.ndarray) -> np.ndarray:
@@ -188,7 +220,7 @@ def _launch(kernel: str, coeff: np.ndarray, shards: torch.Tensor, tile: int, ext
         extra = (EXTRACTS[extract],) if probe is None else (EXTRACTS[extract], PROBES[probe])
         with torch.cuda.device(shards.device):
             stream = torch.cuda.current_stream().cuda_stream
-            step = 1 if grid == "stripe" else _MAX_GRID_Y
+            step = 1 if grid == "stripe" else b
             for i in range(0, b, step):
                 n = min(step, b - i)
                 _build.launch(kernel, x[i].data_ptr(), x.stride(0), out[i].data_ptr(),

@@ -18,14 +18,16 @@ round 2  bm-loop      D, loop extraction (per byte), per stripe
          bm-nodot     D's probe: extraction and repack, no dot
          bm-noext     D's probe: the dot on faked bits, no extraction
 
-Each variant runs at each tile of ``TILES``, columns of S per thread
-block of the bit-matrix kernel. The TPU sweep's 8192-131072 were VMEM
-block sizes; here a block is 4 warps that each take 8 columns per MMA,
-and at R=2, C=12 it holds W (1.5 KiB), the staged 12 * tile bytes and
-its output, 5.0 KiB at 256 up to 57.5 KiB at 4096 (over the 48 KiB a
-block gets without opting in). So the sweep runs from 16,384 blocks per
-stripe, small blocks that each also lay out W's fragments, to 1,024
-blocks of 1,024 columns a warp.
+Each variant runs at each tile of ``TILES``, columns of S per work item
+of the bit-matrix kernel. The TPU sweep's 8192-131072 were VMEM block
+sizes. Here the kernel is persistent: as many blocks as the SMs hold
+walk the (stripe, tile) items, each block laying out W (1.5 KiB at R=2,
+C=12) once, and a tile is one stage of a block's input ring (12 * tile
+bytes, 3 stages) and of its two output stages (2 * tile bytes each):
+41.5 KiB of shared memory at tile 1024, 161.5 KiB at 4096
+(``gf_bitmajor.smem_bytes``). So the sweep runs from 16,384 items per
+stripe of 256 columns, one group of 32 columns for each of the 8
+consumer warps, to 1,024 items of 4,096 columns, 16 groups a warp.
 A's block width is fixed (4,096 columns), so ``base`` repeats the same
 kernel at every tile: its spread is the sweep's noise.
 
