@@ -7,16 +7,24 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 It builds the port's CUDA kernels from the sources in the checkout,
 holds each against its plain PyTorch version at the width of the
-production EC12P4 codemode (RS(12+4), 4 MiB shards) and on the edges
-of their designs (ragged and unaligned shards, parity written in place,
-strided and unaligned CRC blocks of odd lengths), times each whole call
-with CUDA events (``ms``) and each kernel alone from the profiler's CUDA
-trace (``device_ms``, host work excluded), then drives the port's main path
-through its public entry points (encode and reconstruct of a 48 MiB
-payload, the pinned RS(12+4) fixture, the repair step with a corrupted
-survivor, blob frame verification), checks that the path launched
-both of its kernels, and times the path's entry points end to end.
-Last it drives the GF tuning path (``tuning/gf_tuning.py``, both
+production EC12P4 codemode (RS(12+4), 4 MiB shards), at the LRC and MSR
+shapes (EC16P20L2's composed 22x16 rows, EC6P6MSR's 36x36 rows, helper
+row and repair rows at beta = 699,051) and on the edges of their
+designs (ragged and unaligned shards, parity written in place, strided
+and unaligned CRC blocks of odd lengths), times each whole call with
+CUDA events (``ms``) and each kernel alone from the profiler's CUDA
+trace (``device_ms``, host work excluded), then drives the port's main
+path through its public entry points (encode and reconstruct of a
+48 MiB payload, the pinned RS(12+4) fixture, the repair step with a
+corrupted survivor, blob frame verification) and checks that the path
+launched both of its kernels. Then the codec families (EC16P20L2 and
+EC6P6MSR stripes at full width, the pinned EC16P20L2 fixture, the MSR
+sub-shard repair of every slot with a corrupted helper symbol) and the
+codec batcher (concurrent small PUTs from 32 threads, of one size and
+of mixed sizes), each held against the plain version and the unbatched
+launches, with the launch
+counts of each path read from zero. It times the entry points end to
+end. Last it drives the GF tuning path (``tuning/gf_tuning.py``, both
 rounds), which runs the bit-matrix tensor-core kernels, and checks that
 it launched them. Each phase prints one JSON line; any failure raises.
 
@@ -35,14 +43,18 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 SEED = 20261016
 MIB = 1 << 20
 SHARD = 4 * MIB  # EC12P4 production shard size
+MSR_PAYLOAD = 24 * MIB  # an EC6P6MSR blob: shards of 4 MiB + 2, beta = 699,051
+PUT = MIB  # a small blob PUT, as the access layer sends them concurrently
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -86,7 +98,9 @@ def main() -> int:
     sys.path.insert(0, root)
     from cubefs_tpu_torch.codec import codemode as cm
     from cubefs_tpu_torch.codec import crc32block
+    from cubefs_tpu_torch.codec.batcher import AdmittedEngine, BatchCodec
     from cubefs_tpu_torch.codec.encoder import CodecConfig, new_encoder
+    from cubefs_tpu_torch.codec.engine import CudaEngine
     from cubefs_tpu_torch.models import repair
     from cubefs_tpu_torch.ops import (_build, crc32_kernel, crc_cuda, gf256, gf_bitmajor,
                                       gf_cuda, rs_kernel)
@@ -145,8 +159,16 @@ def main() -> int:
     step_rows = repair._step_rows(plan)  # recovery + extra-survivor rows, as repair_step applies them
     surviving = rand(4, len(plan.present), SHARD)
     in_place = rand(8, n + m, SHARD)  # encode straight into the stripes' parity rows
-    in_place_data = in_place[:, :n].clone()
     unaligned = rand(3 * (SHARD + 5) + 1)[1:].view(3, 1, SHARD + 5)  # base 1 byte off
+    # the LRC and MSR families' shapes of A, each in place where the codec writes in place
+    lrc_enc = new_encoder(CodecConfig(cm.CodeMode.EC16P20L2))
+    lrc_gf = rand(4, lrc_enc.t.total, SHARD)
+    msr_t = cm.tactic(cm.CodeMode.EC6P6MSR)
+    msr_k, msr_total, msr_d, alpha = msr_t.n, msr_t.total, msr_t.d, msr_t.alpha
+    msr_s = new_encoder(CodecConfig(cm.CodeMode.EC6P6MSR)).shard_size(MSR_PAYLOAD)
+    beta = msr_s // alpha
+    msr_gf = rand(4, msr_total, msr_s)
+    repair_helpers = tuple(range(1, msr_total))
     gf_cases = [  # (label, coeff, shards, out)
         ("repair_rs12p4_bad1_7_B4", step_rows, surviving[:, :n, :], None),
         ("encode_rs12p4_B8", gf256.parity_matrix(n, m), rand(8, n, SHARD), None),
@@ -157,22 +179,35 @@ def main() -> int:
          None),
         ("one_row_one_col_ragged_unaligned_B3", rng.integers(1, 256, (1, 1), dtype=np.uint8),
          unaligned, None),
+        ("lrc_rows_22x16_EC16P20L2_in_place_B4", lrc_enc._encode_rows, lrc_gf[:, :16],
+         lrc_gf[:, 16:]),
+        ("msr_encode_36x36_EC6P6MSR_in_place_B4",
+         rs_kernel.msr_encode_rows(msr_k, msr_total, msr_d),
+         rs_kernel.msr_subshards(msr_gf[:, :msr_k], alpha),
+         rs_kernel.msr_subshards(msr_gf[:, msr_k:], alpha)),
+        ("msr_helper_1x6_every_node_B4", rs_kernel.msr_helper_rows(msr_k, msr_total, msr_d, 0),
+         msr_gf.view(4, msr_total, alpha, beta), None),
+        ("msr_repair_6x11_B4",
+         rs_kernel.msr_repair_rows(msr_k, msr_total, msr_d, 0, repair_helpers),
+         rand(4, msr_d, beta), None),
     ]
     coeff_36x36 = gf_cases[4][1]
     gf_results = []
     for label, coeff, x, out in gf_cases:
         r, c = coeff.shape
-        b, s = x.shape[0], x.shape[-1]
+        s = x.shape[-1]
+        b = x.numel() // (c * s)
         w = torch.from_numpy(rs_kernel.coeff_bits(coeff))
         call = functools.partial(gf_cuda.gf_apply, coeff, x, out=out)
+        x_before = x.clone() if out is not None else None
         got = call()
         want = rs_kernel.gf_apply_bits(w, x)
         torch.cuda.synchronize()
         equal = bool(torch.equal(got, want))
-        if out is not None:  # written in place, the data rows untouched
-            equal = equal and got is out and bool(torch.equal(in_place[:, :n], in_place_data))
+        if out is not None:  # written in place, the input rows untouched
+            equal = equal and got is out and bool(torch.equal(x, x_before))
         err = max_abs_err(got, want)
-        del got, want
+        del got, want, x_before
         ms = time_ms(call, KERNEL_REPS)
         dev_ms = device_ms(call, KERNEL_REPS, "gf_apply_kernel")
         plain_ms = time_ms(lambda: rs_kernel.gf_apply_bits(w, x), PLAIN_REPS)
@@ -186,7 +221,7 @@ def main() -> int:
         if not equal:
             raise AssertionError(f"gf_apply disagrees with its plain version: {res}")
     emit({"phase": "gf_apply", "cases": gf_results})
-    del surviving, gf_cases, in_place, in_place_data, unaligned
+    del surviving, gf_cases, in_place, unaligned, lrc_gf, msr_gf
 
     # -- 3. crc32_blocks vs plain and zlib -------------------------------
     frame_rows = rand(512, 4, 64 << 10)  # blob frames: payloads 4 bytes into their blocks
@@ -373,7 +408,257 @@ def main() -> int:
         raise AssertionError(f"main path checks failed: {failed}")
     launches = dict(_build.LAUNCHES)
 
-    # -- 6. the entry points end to end, timed ------------------------------
+    def plain(coeff: np.ndarray, x: torch.Tensor) -> torch.Tensor:
+        return rs_kernel.gf_apply_bits(torch.from_numpy(rs_kernel.coeff_bits(coeff)), x)
+
+    def only_gf_apply(counts: dict[str, int]) -> bool:
+        return counts["gf_apply"] > 0 and all(v == 0 for k, v in counts.items() if k != "gf_apply")
+
+    # -- 6. the LRC and MSR codec families, through the entry points --------
+    # Every result is held against the plain version on the same inputs, or
+    # against stripes that were; any mismatch fails the run.
+    _build.reset_launches()
+    t_fam = time.perf_counter()
+    fam = {}
+
+    # EC16P20L2 (two AZs): 4 stripes of 4 MiB shards from 64 MiB payloads
+    lt = lrc_enc.t
+    lrc_payloads = rand(4, lt.n * SHARD)
+    lrc = torch.stack([lrc_enc.split(p) for p in lrc_payloads])
+    before = _build.LAUNCHES["gf_apply"]
+    lrc_enc.encode(lrc)
+    fam["lrc_encode_launches"] = _build.LAUNCHES["gf_apply"] - before
+    fam["lrc_encode_plain"] = bool(torch.equal(
+        lrc[:, lt.n:], plain(lrc_enc._encode_rows, lrc[:, :lt.n])))
+    fam["lrc_verify"] = lrc_enc.verify(lrc)
+    lrc_golden = lrc.clone()
+    bad = [1, 7, lt.n + lt.m]  # two data shards and AZ 0's local parity
+    lrc[:, bad] = 0
+    fam["lrc_verify_damaged"] = lrc_enc.verify(lrc)
+    lrc_enc.reconstruct(lrc, bad)
+    fam["lrc_reconstruct"] = bool(torch.equal(lrc, lrc_golden))
+    fam["lrc_join"] = lrc_enc.join(lrc[0], lt.n * SHARD) == lrc_payloads[0].cpu().numpy().tobytes()
+    idx, _, _ = lt.local_stripe_in_az(1)
+    local = lrc_golden[:, idx].clone()  # a bare local stripe, one shard lost
+    local[:, 3] = 0
+    lrc_enc.reconstruct(local, [3])
+    fam["lrc_local_stripe_repair"] = (bool(torch.equal(local, lrc_golden[:, idx]))
+                                      and lrc_enc.verify(local))
+    rows = lrc_golden[:, : lt.n + lt.m].clone()  # the degraded GET's (N+M) rows
+    rows[:, [0, lt.n - 1]] = 0
+    lrc_enc.reconstruct_data(rows, [0, lt.n - 1])
+    fam["lrc_reconstruct_data_global_rows"] = bool(torch.equal(rows, lrc_golden[:, : lt.n + lt.m]))
+    del lrc, lrc_golden, local, rows, lrc_payloads
+    with open(os.path.join(root, "tests", "fixtures", "ec16p20l2.bin"), "rb") as f:
+        lrc_fixture = np.frombuffer(f.read(), dtype=np.uint8).reshape(lt.total, 512)
+    fx = torch.zeros((lt.total, 512), dtype=torch.uint8, device=dev)
+    fx[: lt.n] = torch.from_numpy(lrc_fixture[: lt.n].copy()).to(dev)
+    lrc_enc.encode(fx)
+    fam["lrc_fixture_parity"] = bool(np.array_equal(fx.cpu().numpy(), lrc_fixture))
+
+    # EC6P6MSR (three AZs, d = 11): 4 stripes from 24 MiB payloads
+    msr_enc = new_encoder(CodecConfig(cm.CodeMode.EC6P6MSR))
+    msr_payloads = rand(4, MSR_PAYLOAD)
+    msr = torch.stack([msr_enc.split(p) for p in msr_payloads])
+    before = _build.LAUNCHES["gf_apply"]
+    msr_enc.encode(msr)
+    fam["msr_encode_launches"] = _build.LAUNCHES["gf_apply"] - before
+    fam["msr_shard"] = [msr_s, beta]
+    fam["msr_encode_plain"] = bool(torch.equal(
+        rs_kernel.msr_subshards(msr[:, msr_k:], alpha),
+        plain(rs_kernel.msr_encode_rows(msr_k, msr_total, msr_d),
+              rs_kernel.msr_subshards(msr[:, :msr_k], alpha))))
+    fam["msr_verify"] = msr_enc.verify(msr)
+    msr_golden = msr.clone()
+    msr_bad = sorted(rng.choice(msr_total, msr_total - msr_k, replace=False).tolist())
+    msr[:, msr_bad] = 0
+    msr_enc.reconstruct(msr, msr_bad)
+    fam["msr_reconstruct_bad"] = msr_bad
+    fam["msr_reconstruct"] = bool(torch.equal(msr, msr_golden))
+    fam["msr_join"] = all(msr_enc.join(msr[i], MSR_PAYLOAD)
+                          == msr_payloads[i].cpu().numpy().tobytes() for i in range(4))
+    del msr, msr_payloads
+
+    def repair_every_slot(enc_, stripes: torch.Tensor, with_verify: bool) -> dict[str, bool]:
+        """Each slot lost in turn: d helper symbols (one apply of the
+        helper row over every node) rebuild it through msr_repair_shard;
+        with an extra survivor, its verify row predicts that survivor's
+        symbol, and one corrupted helper symbol must break the prediction
+        of its stripe only."""
+        t = enc_.t
+        b_, s_ = stripes.shape[0], stripes.shape[-1]
+        nodes = stripes.view(b_, t.total, t.alpha, s_ // t.alpha)
+        out = {"rebuilt": True, "plain": True, "predicted": True, "corrupt_caught": True}
+        for failed in range(t.total):
+            order = [i for i in range(t.total) if i != failed]
+            helpers = tuple(order[: t.d])
+            row = rs_kernel.msr_helper_rows(t.n, t.total, t.d, failed)
+            syms = rs_kernel.gf_matrix_apply(row, nodes)[:, :, 0]
+            payloads = syms[:, list(helpers)]
+            rebuilt = rs_kernel.msr_repair_shard(payloads, t.n, t.total, t.d, failed, helpers)
+            out["rebuilt"] &= bool(torch.equal(rebuilt, stripes[:, failed]))
+            rep = rs_kernel.msr_repair_rows(t.n, t.total, t.d, failed, helpers)
+            out["plain"] &= (bool(torch.equal(syms, plain(row, nodes)[:, :, 0]))
+                             and bool(torch.equal(rebuilt, plain(rep, payloads).view(b_, s_))))
+            if with_verify:
+                extra = order[t.d]
+                vrow = rs_kernel.msr_verify_rows(t.n, t.total, t.d, failed, helpers, extra)
+                pred = rs_kernel.gf_matrix_apply(vrow, payloads)[:, 0]
+                out["predicted"] &= (bool(torch.equal(pred, syms[:, extra]))
+                                     and bool(torch.equal(pred, plain(vrow, payloads)[:, 0])))
+                payloads[2, failed % t.d, (s_ // t.alpha) // 2] ^= 0x5A
+                pred = rs_kernel.gf_matrix_apply(vrow, payloads)[:, 0]
+                out["corrupt_caught"] &= [bool(torch.equal(pred[i], syms[i, extra]))
+                                          for i in range(b_)] == [True, True, False, True]
+        return out
+
+    fam["msr_repair_EC6P6MSR_d11"] = repair_every_slot(msr_enc, msr_golden, False)
+    del msr_golden
+    one_az_enc = new_encoder(CodecConfig(cm.CodeMode.EC6P6MSROneAZ))
+    one_az = torch.stack([one_az_enc.split(p) for p in rand(4, MSR_PAYLOAD)])
+    one_az_enc.encode(one_az)
+    fam["msr_repair_EC6P6MSROneAZ_d10"] = repair_every_slot(one_az_enc, one_az, True)
+    del one_az
+    torch.cuda.synchronize()
+    fam["seconds"] = time.perf_counter() - t_fam
+    fam["launches"] = dict(_build.LAUNCHES)
+    emit({"phase": "codec_families", **fam})
+    fam_checks = {
+        "lrc_encode_one_launch": fam["lrc_encode_launches"] == 1,
+        "lrc_encode_plain": fam["lrc_encode_plain"],
+        "lrc_verify": fam["lrc_verify"] and not fam["lrc_verify_damaged"],
+        "lrc_reconstruct": fam["lrc_reconstruct"],
+        "lrc_join": fam["lrc_join"],
+        "lrc_local_stripe_repair": fam["lrc_local_stripe_repair"],
+        "lrc_reconstruct_data_global_rows": fam["lrc_reconstruct_data_global_rows"],
+        "lrc_fixture_parity": fam["lrc_fixture_parity"],
+        "msr_encode_one_launch": fam["msr_encode_launches"] == 1,
+        "msr_encode_plain": fam["msr_encode_plain"],
+        "msr_verify": fam["msr_verify"],
+        "msr_reconstruct": fam["msr_reconstruct"],
+        "msr_join": fam["msr_join"],
+        **{f"{k}.{c}": v for k in ("msr_repair_EC6P6MSR_d11", "msr_repair_EC6P6MSROneAZ_d10")
+           for c, v in fam[k].items()},
+        "launched_only_gf_apply": only_gf_apply(fam["launches"]),
+    }
+    failed = [k for k, v in fam_checks.items() if not v]
+    if failed:
+        raise AssertionError(f"codec family checks failed: {failed}")
+
+    # -- 7. the codec batcher: concurrent small PUTs and an MSR mix --------
+    # 32 threads each admit 8 EC12P4 encodes of 1 MiB payloads before
+    # collecting them, as the blob access layer's concurrent PUTs do; every
+    # fourth thread also admits two EC6P6MSR encodes (another key). Then
+    # the same threads with payloads of mixed sizes: the batcher coalesces
+    # only submissions of one shard size S, so that run shows what it does
+    # with traffic it cannot coalesce. Every stripe's parity is held against
+    # the plain version and against a launch of its own.
+    _build.reset_launches()
+    bc = BatchCodec(enabled=True)
+    put_enc = new_encoder(CodecConfig(cm.CodeMode.EC12P4))
+    put_enc.engine = AdmittedEngine(bc, dev)
+    mix_enc = new_encoder(CodecConfig(cm.CodeMode.EC6P6MSR))
+    mix_enc.engine = AdmittedEngine(bc, dev)
+    n_threads, per_thread, mix_per = 32, 8, 2
+    n_puts = n_threads * per_thread
+    put_rows = gf256.parity_matrix(n, m)
+    msr_rows = rs_kernel.msr_encode_rows(msr_k, msr_total, msr_d)
+
+    def run_puts(payloads: list, mix_payloads: list) -> tuple[list, list, float]:
+        """32 threads admit their PUTs (and the MSR mix) and collect them."""
+        stripes, mixed = [None] * len(payloads), [None] * len(mix_payloads)
+        start = threading.Barrier(n_threads)
+
+        def worker(i: int) -> None:
+            start.wait(60.0)
+            pending = []
+            for j in range(per_thread):
+                k = i * per_thread + j
+                stripes[k] = put_enc.split(payloads[k])
+                pending.append(put_enc.encode_async(stripes[k]))
+                if len(mix_payloads) and i % 4 == 0 and j < mix_per:
+                    q = i // 4 * mix_per + j
+                    mixed[q] = mix_enc.split(mix_payloads[q])
+                    pending.append(mix_enc.encode_async(mixed[q]))
+            for p in pending:
+                p.wait()
+
+        t = time.perf_counter()
+        with ThreadPoolExecutor(n_threads) as pool:
+            for f in [pool.submit(worker, i) for i in range(n_threads)]:
+                f.result()  # re-raises a worker's failure
+        torch.cuda.synchronize()
+        return stripes, mixed, time.perf_counter() - t
+
+    def equals_plain(rows: np.ndarray, xs: list, ys: list) -> bool:
+        """ys[i] == plain(rows, xs[i]) for every stripe, 32 at a time."""
+        return all(bool(torch.equal(torch.stack(ys[i:i + 32]),
+                                    plain(rows, torch.stack(xs[i:i + 32]))))
+                   for i in range(0, len(xs), 32))
+
+    def puts_hold(stripes: list) -> dict[str, bool]:
+        by_s = {}  # the plain version takes one S at a time
+        for st in stripes:
+            by_s.setdefault(st.shape[-1], []).append(st)
+        return {
+            "plain": all(equals_plain(put_rows, [st[:n] for st in g], [st[n:] for st in g])
+                         for g in by_s.values()),
+            "unbatched": all(bool(torch.equal(st[n:], rs_kernel.encode_parity(st[:n], m)))
+                             for st in stripes)}
+
+    put_stripes, mix_stripes, secs = run_puts(
+        rand(n_puts, PUT), rand(n_threads // 4 * mix_per, PUT))
+    bat = {"seconds": secs, "threads": n_threads, "submissions": bc.submissions,
+           "steps": bc.steps, "put_shard": put_enc.shard_size(PUT),
+           "launches": dict(_build.LAUNCHES)}
+    bat["puts"] = puts_hold(put_stripes)
+    bat["msr_mix"] = {
+        "plain": equals_plain(msr_rows,
+                              [rs_kernel.msr_subshards(st[:msr_k], alpha) for st in mix_stripes],
+                              [rs_kernel.msr_subshards(st[msr_k:], alpha) for st in mix_stripes]),
+        "unbatched": all(bool(torch.equal(
+            st[msr_k:], rs_kernel.msr_encode_parity(st[:msr_k], msr_k, msr_total, msr_d)))
+            for st in mix_stripes)}
+    n_uniform = len(put_stripes) + len(mix_stripes)
+    del put_stripes, mix_stripes
+    sizes = rng.integers(PUT // 2, 2 * PUT + 1, n_puts)
+    before = (bc.submissions, bc.steps)
+    mixed_stripes, _, secs = run_puts([rand(int(z)) for z in sizes], [])
+    bat["mixed_sizes"] = {
+        "seconds": secs, "submissions": bc.submissions - before[0],
+        "steps": bc.steps - before[1],
+        "distinct_s": len({put_enc.shard_size(int(z)) for z in sizes}),
+        **puts_hold(mixed_stripes)}
+    bat["queues_left"] = len(bc._queues)  # an idle key's queue is dropped
+    st = put_enc.split(rand(PUT))
+    data = st[:n].clone()
+    before = _build.LAUNCHES["gf_apply"]
+    put_enc.encode(st)  # uncontended: one launch, parity written into the stripe
+    bat["uncontended_launches"] = _build.LAUNCHES["gf_apply"] - before
+    bat["uncontended_plain"] = (bool(torch.equal(st[:n], data)) and bool(
+        torch.equal(st[n:], plain(put_rows, data))))
+    bat["launches_all_runs"] = dict(_build.LAUNCHES)
+    emit({"phase": "batcher", **bat})
+    mx = bat["mixed_sizes"]
+    bat_checks = {
+        **{f"{run}.{c}": v for run in ("puts", "msr_mix") for c, v in bat[run].items()},
+        "mixed_sizes.plain": mx["plain"],
+        "mixed_sizes.unbatched": mx["unbatched"],
+        "all_submitted": bat["submissions"] == n_uniform and mx["submissions"] == n_puts,
+        "fewer_steps_than_submissions": 0 < bat["steps"] < bat["submissions"],
+        "mixed_sizes_at_most_a_step_each": mx["distinct_s"] <= mx["steps"] <= n_puts,
+        "idle_queues_dropped": bat["queues_left"] == 0,
+        "uncontended_encode_one_launch": bat["uncontended_launches"] == 1
+        and bat["uncontended_plain"],
+        "launched_only_gf_apply": only_gf_apply(bat["launches_all_runs"]),
+    }
+    failed = [k for k, v in bat_checks.items() if not v]
+    if failed:
+        raise AssertionError(f"batcher checks failed: {failed}")
+    del mixed_stripes
+    torch.cuda.empty_cache()
+
+    # -- 8. the entry points end to end, timed ------------------------------
     # Each ms covers the whole call (host work, kernels, views, compares).
     e2e = []
 
@@ -394,6 +679,12 @@ def main() -> int:
     stripes = rand(8, n + m, SHARD)
     e2e_case("Encoder.encode_EC12P4_B8", lambda: enc.encode(stripes),
              moved=8 * n * SHARD, least=8 * (n + m) * SHARD)
+    # the same launch without the admission layer: the difference is what
+    # the batcher costs an uncontended caller
+    raw = CudaEngine(dev)
+    e2e_case("CudaEngine.encode_parity_EC12P4_B8_unadmitted",
+             lambda: raw.encode_parity(stripes[:, :n], m, out=stripes[:, n:]),
+             moved=8 * n * SHARD, least=8 * (n + m) * SHARD)
     del stripes
     data = rand(4, n, SHARD)
     surviving = torch.cat([data, rs_kernel.encode_parity(data, m)], dim=1)[:, list(plan.present)]
@@ -406,9 +697,57 @@ def main() -> int:
     e2e_case("verify_batch_1024x256KiB", lambda: crc32block.verify_batch(many),
              moved=many.numel(), least=many.numel())
     del many
+    stripes = rand(4, lt.total, SHARD)
+    e2e_case("LrcEncoder.encode_EC16P20L2_B4", lambda: lrc_enc.encode(stripes),
+             moved=4 * lt.n * SHARD, least=4 * lt.total * SHARD)
+    stripes = rand(4, msr_total, msr_s)
+    e2e_case("MsrEncoder.encode_EC6P6MSR_B4", lambda: msr_enc.encode(stripes),
+             moved=4 * msr_k * msr_s, least=4 * msr_total * msr_s)
+    del stripes
+    ot = one_az_enc.t
+    one_az_s = one_az_enc.shard_size(MSR_PAYLOAD)
+    payloads = rand(4, ot.d, one_az_s // ot.alpha)
+    helpers = tuple(range(1, ot.d + 1))
+    e2e_case("msr_repair_shard_EC6P6MSROneAZ_B4",
+             lambda: rs_kernel.msr_repair_shard(payloads, ot.n, ot.total, ot.d, 0, helpers),
+             moved=payloads.numel(), least=payloads.numel() + 4 * one_az_s)
+    del payloads
+    # the same 48 PUT-sized encodes through the batcher and as 48 launches
+    # one by one, parity written into each caller's stripe: 1 MiB each (one
+    # S, one coalesced step), then of mixed sizes (an S each, a step each)
+    e2e_bc = BatchCodec(enabled=True)
+    put_s = put_enc.shard_size(PUT)
+    mixed_s = [put_enc.shard_size(int(z)) for z in rng.integers(PUT // 2, 2 * PUT + 1, 48)]
+    for tag, shard_sizes, want_steps in (("1MiB", [put_s] * 48, 1),
+                                         ("mixed_sizes", mixed_s, len(set(mixed_s)))):
+        puts = [rand(1, n + m, z) for z in shard_sizes]
+
+        def admitted(puts=puts):
+            futs = [e2e_bc.submit_encode_async(dev, p[:, :n], m, out=p[:, n:]) for p in puts]
+            for f in futs:
+                f.result()
+
+        def one_by_one(puts=puts):
+            for p in puts:
+                rs_kernel.encode_parity(p[:, :n], m, out=p[:, n:])
+
+        steps = e2e_bc.steps
+        admitted()
+        got = [p[:, n:].clone() for p in puts]
+        one_by_one()
+        if e2e_bc.steps != steps + want_steps or not all(
+                bool(torch.equal(g, p[:, n:])) and bool(torch.equal(g, plain(put_rows, p[:, :n])))
+                for g, p in zip(got, puts)):
+            raise AssertionError(f"the batcher's steps ({tag}) disagree with the launches one "
+                                 f"by one or the plain version")
+        moved = sum(n * z for z in shard_sizes)
+        for label, fn in ((f"batcher_EC12P4_{tag}_x48", admitted),
+                          (f"one_by_one_EC12P4_{tag}_x48", one_by_one)):
+            e2e_case(label, fn, moved=moved, least=moved * (n + m) // n)
+        del puts, got
     emit({"phase": "end_to_end", "cases": e2e})
 
-    # -- 7. the GF tuning path: both rounds of tuning/gf_tuning.py ----------
+    # -- 9. the GF tuning path: both rounds of tuning/gf_tuning.py ----------
     _build.reset_launches()
     tuning = {}
     for round_ in (1, 2):
@@ -425,7 +764,7 @@ def main() -> int:
         raise AssertionError(f"the tuning path did not launch both bit-matrix kernels: "
                              f"{tuning_launches}")
 
-    # -- 8. the kernels' record ---------------------------------------------
+    # -- 10. the kernels' record --------------------------------------------
     gf_main, crc_main = gf_results[0], crc_results[0]
     bm_main, probe_main = (next(x for x in bm_results
                                 if (x["case"], x["extract"], x["probe"], x["grid"]) == key)

@@ -1,7 +1,8 @@
 """Codemode registry: declarative EC layouts and stripe geometry.
 
 The port's own copy of ``cubefs_tpu/codec/codemode.py`` (CodeMode,
-Tactic, tactic()), which mirrors the reference's public codemode surface
+Tactic, tactic(), Policy, select_codemode()), which mirrors the
+reference's public codemode surface
 (blobstore/common/codemode/codemode.go). The values are protocol
 constants of the system, not code.
 """
@@ -221,3 +222,22 @@ def tactic(mode: CodeMode | int | str) -> Tactic:
     if isinstance(mode, str):
         mode = CodeMode[mode]
     return TACTICS[CodeMode(mode)]
+
+
+@dataclass
+class Policy:
+    """Size-class policy the access layer uses to pick a codemode per
+    object size (reference: blobstore/common/codemode/policy.go)."""
+
+    mode_name: str
+    min_size: int = 0
+    max_size: int = 1 << 62
+    size_ratio: float = 0.0
+    enable: bool = True
+
+
+def select_codemode(policies: list[Policy], size: int) -> CodeMode:
+    for p in policies:
+        if p.enable and p.min_size <= size <= p.max_size:
+            return CodeMode[p.mode_name]
+    raise ValueError(f"no enabled codemode policy covers size {size}")

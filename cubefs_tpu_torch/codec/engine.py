@@ -29,9 +29,11 @@ class CudaEngine:
             x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.uint8))
         return x.to(self.device)
 
-    def matrix_apply(self, coeff: np.ndarray, shards) -> torch.Tensor:
-        """(R, C) GF matrix x (..., C, S) shards -> (..., R, S) on the engine's device."""
-        return rs_kernel.gf_matrix_apply(coeff, self._on_device(shards))
+    def matrix_apply(self, coeff: np.ndarray, shards, out: torch.Tensor | None = None
+                     ) -> torch.Tensor:
+        """(R, C) GF matrix x (..., C, S) shards -> (..., R, S) on the
+        engine's device, written into ``out`` if given."""
+        return rs_kernel.gf_matrix_apply(coeff, self._on_device(shards), out=out)
 
     def encode_parity(self, data, n_parity: int, out: torch.Tensor | None = None
                       ) -> torch.Tensor:

@@ -89,7 +89,12 @@ def gf_apply(coeff: np.ndarray, shards: torch.Tensor, out: torch.Tensor | None =
         x_st = x.stride(0) if b > 1 else 0
         y_st = [st if n > 1 else 0 for st, n in zip(y.stride()[:2], y.shape[:2])]
         with torch.cuda.device(shards.device):
-            stream = torch.cuda.current_stream().cuda_stream
+            cur = torch.cuda.current_stream()
+            # the cached table was allocated on the stream of its first
+            # use: once evicted, its memory must not go to new work on
+            # that stream before this launch has read it
+            k.record_stream(cur)
+            stream = cur.cuda_stream
             for i in range(0, b, _MAX_GRID_Y):
                 n = min(_MAX_GRID_Y, b - i)
                 _build.launch("gf_apply", x[i].data_ptr(), x_st, y[i].data_ptr(), *y_st,

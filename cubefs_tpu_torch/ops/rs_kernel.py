@@ -12,6 +12,11 @@ coefficient matrix (plane-major, ``coeff_bits``) times the unpacked bit
 planes, a float32 product of 0/1 values (exact: sums <= 8*36 = 288),
 then mod 2 and a repack. Both are exact integer math, so the outputs are
 bit-identical to the reference engine for the same encode matrix.
+
+The LRC and MSR families use the same apply: ``lrc_reconstruct_rows``
+composes a local parity's row with its stripe members' rows, and the
+``msr_*`` rows (``ops/msr.py``) apply to sub-shard views of the stripes
+(``msr_subshards``).
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import bitlin, gf256, gf_cuda
+from . import bitlin, gf256, gf_cuda, msr
 
 # Columns of S per slice of the plain version: bounds its float32 bit
 # planes to 8*C*4 bytes per column.
@@ -125,3 +130,80 @@ def reconstruct_stripes(
     """surviving: (..., n_data, S) uint8 = the first n_data present shards
     in ascending shard-index order; returns (..., len(wanted), S)."""
     return gf_matrix_apply(reconstruct_rows(n_data, n_total, present, wanted), surviving)
+
+
+def lrc_reconstruct_rows(
+    n_data: int, n_total: int, stripes: list[list[int]], ln: int,
+    present: list[int], wanted: list[int],
+) -> np.ndarray:
+    """reconstruct_rows over the full two-level LRC shard space.
+
+    ``present`` indexes the global stripe (< n_total: data and global
+    parity); ``wanted`` may include local-parity indices (>= n_total). A
+    local parity is the local code's re-encode of its stripe's first
+    ``ln`` members, all global-space indices, so its row is the local
+    encode row composed with the global solve: one matrix, one apply.
+    With the data shards as ``present`` the solve is the identity, and
+    the rows of every parity shard are the LRC encode matrix."""
+    present = sorted(present)[:n_data]
+    dec = gf256.decode_matrix(n_data, n_total, present)
+    enc = gf256.encode_matrix(n_data, n_total)
+    rows = np.zeros((len(wanted), n_data), dtype=np.uint8)
+    for r, w in enumerate(wanted):
+        if w < n_total:
+            rows[r] = enc[w]
+            continue
+        stripe = next(s for s in stripes if w in s)
+        local = gf256.encode_matrix(ln, len(stripe))
+        members = enc[np.asarray(stripe[:ln])]
+        rows[r] = gf256.gf_matmul(local[[stripe.index(w)]], members)[0]
+    return gf256.gf_matmul(rows, dec)
+
+
+# ---------------- product-matrix MSR (regenerating code) ----------------
+# Row construction lives in ops/msr.py (tiny exact host math, cached per
+# geometry, failed slot and helper set); the byte work is one
+# gf_matrix_apply, the same kernel as RS.
+
+msr_encode_rows = msr.encode_rows
+msr_helper_rows = msr.helper_rows
+msr_repair_rows = msr.repair_rows
+msr_verify_rows = msr.verify_rows
+msr_reconstruct_rows = msr.reconstruct_rows
+
+
+def msr_subshards(shards: torch.Tensor, alpha: int) -> torch.Tensor:
+    """(..., B, S) -> (..., B*alpha, S/alpha): each shard's alpha
+    sub-shards as rows, so MSR coefficient matrices apply. A view, never
+    a copy (it raises if the rows of a shard are not back to back), so a
+    kernel writing into it writes into the stripe. S must be divisible
+    by alpha (``MsrEncoder.shard_size`` rounds to it)."""
+    *lead, b, s = shards.shape
+    if s % alpha:
+        raise ValueError(f"shard size {s} not divisible by alpha={alpha}")
+    return shards.view(*lead, b * alpha, s // alpha)
+
+
+def msr_join_subshards(sub: torch.Tensor, alpha: int) -> torch.Tensor:
+    """Inverse of msr_subshards: (..., B*alpha, beta) -> (..., B, S), a view."""
+    *lead, rows, beta = sub.shape
+    return sub.view(*lead, rows // alpha, alpha * beta)
+
+
+def msr_encode_parity(data: torch.Tensor, k: int, total: int, d: int) -> torch.Tensor:
+    """data: (..., k, S) uint8 -> parity (..., total-k, S) uint8 through
+    the product-matrix generator (``MsrEncoder.encode`` applies the same
+    rows straight into the stripe's parity sub-shards)."""
+    alpha = d - k + 1
+    return msr_join_subshards(
+        gf_matrix_apply(msr.encode_rows(k, total, d), msr_subshards(data, alpha)), alpha)
+
+
+def msr_repair_shard(payloads: torch.Tensor, k: int, total: int, d: int,
+                     failed: int, helpers: tuple[int, ...]) -> torch.Tensor:
+    """payloads: (..., d, beta) helper symbols (in ``helpers`` order) ->
+    the failed shard (..., S = alpha*beta): d*beta bytes of repair
+    traffic instead of the conventional k*alpha*beta."""
+    out = gf_matrix_apply(msr.repair_rows(k, total, d, failed, tuple(helpers)), payloads)
+    *lead, alpha, beta = out.shape
+    return out.view(*lead, alpha * beta)

@@ -116,9 +116,6 @@ def test_typed_errors():
         enc.join(torch.zeros((2, 9, 16), dtype=torch.uint8), 10)
     with pytest.raises(KeyError):
         engine_mod.get_engine("tpu", device="cpu")
-    for mode in (tcm.CodeMode.EC16P20L2, tcm.CodeMode.EC6P6MSR):
-        with pytest.raises(NotImplementedError):
-            tencoder.new_encoder(tencoder.CodecConfig(mode, device="cpu"))
     verifying = tencoder.new_encoder(
         tencoder.CodecConfig(tcm.CodeMode.EC6P3, enable_verify=True, device="cpu"))
     assert verifying.encode(verifying.split(b"x" * 100)).shape == (9, 2048)
