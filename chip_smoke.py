@@ -24,9 +24,15 @@ codec batcher (concurrent small PUTs from 32 threads, of one size and
 of mixed sizes), each held against the plain version and the unbatched
 launches, with the launch
 counts of each path read from zero. It times the entry points end to
-end. Last it drives the GF tuning path (``tuning/gf_tuning.py``, both
+end. Then it drives the GF tuning path (``tuning/gf_tuning.py``, both
 rounds), which runs the bit-matrix tensor-core kernels, and checks that
-it launched them. Each phase prints one JSON line; any failure raises.
+it launched them. Last, the sharded codec step (``parallel/``): 8 ranks
+spawned on the card (gloo, or NCCL where 8 cards are visible) run the
+encode, repair and CRC on a mixed (2, 2, 2) mesh at the repair case's
+width and on a dp-only (8, 1, 1) fleet, each rank on its own block
+through A and B, every block held exactly against the plain version,
+the single-rank path, the lost shards and zlib. Each phase prints one
+JSON line; any failure, in any rank, raises.
 
 The last lines are the kernels' record, the card's name and power limit
 as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -61,6 +67,14 @@ INT8_OPS_PER_S = 1979e12
 KERNEL_REPS = 10
 PLAIN_REPS = 3
 MAIN_KERNELS = ("gf_apply", "crc32_blocks")  # repair_step and Encoder run these
+# the sharded step's meshes on 8 ranks: the mixed mesh at the repair case's
+# width, then the reference dryrun's dp-only fleet (192 MiB of survivors)
+SHARDED_RUNS = (
+    {"name": "mixed", "dims": {"dp": 2, "tp": 2, "sp": 2}, "seed": SEED, "b": 4, "n": 12,
+     "m": 4, "s": SHARD, "bad": [1, 7]},
+    {"name": "dp_only", "dims": {"dp": 8, "tp": 1, "sp": 1}, "seed": SEED + 1, "b": 64,
+     "n": 12, "m": 4, "s": 256 << 10, "bad": [2, 13]},
+)
 # the C and D instantiations the kernels' record reports: (case, extract, probe, grid)
 RECORDED_BM = (("tuning_rows_2x12_B4", "bcast", None, "flat"),
                ("tuning_rows_2x12_B4", "bcast", "nodot", "stripe"))
@@ -88,6 +102,27 @@ def ptxas_registers(log: str) -> dict[str, int]:
     return regs
 
 
+def sharded_summary(run: dict, per_rank: list[dict]) -> dict:
+    """One mesh's record from its ranks' ``dryrun.multichip`` summaries:
+    every check on every rank, each rank's launches of A and B in the
+    sharded calls, the slowest rank's medians and rank 0's kernel times.
+    ``held``: every check true, every rank launched A and B, nothing else."""
+    launched = [s["launches"] for s in per_rank]
+    res = {"run": run["name"], "dims": per_rank[0]["dims"], "B": run["b"], "N": run["n"],
+           "M": run["m"], "S": run["s"], "bad": run["bad"], "block": per_rank[0]["block"],
+           "equal": {c: all(s["checks"][c] for s in per_rank) for c in per_rank[0]["checks"]},
+           "launches": {k: [c[k] for c in launched] for k in MAIN_KERNELS},
+           "other_launches": sum(v for c in launched for k, v in c.items()
+                                 if k not in MAIN_KERNELS)}
+    for key in ("step_ms", "encode_ms", "collective_ms"):
+        res[key] = max(s[key] for s in per_rank)
+    res["step_ms_by_rank"] = [s["step_ms"] for s in per_rank]
+    res["rank0_device_ms"] = per_rank[0]["kernel_ms"]
+    res["held"] = (all(res["equal"].values()) and res["other_launches"] == 0
+                   and all(x > 0 for k in MAIN_KERNELS for x in res["launches"][k]))
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -104,6 +139,7 @@ def main() -> int:
     from cubefs_tpu_torch.models import repair
     from cubefs_tpu_torch.ops import (_build, crc32_kernel, crc_cuda, gf256, gf_bitmajor,
                                       gf_cuda, rs_kernel)
+    from cubefs_tpu_torch.parallel import dryrun, launch
     from cubefs_tpu_torch.tuning import gf_tuning
     from cubefs_tpu_torch.utils.benchtime import device_ms, kernel_ms
     from cubefs_tpu_torch.utils.benchtime import timed_ms as time_ms
@@ -764,7 +800,30 @@ def main() -> int:
         raise AssertionError(f"the tuning path did not launch both bit-matrix kernels: "
                              f"{tuning_launches}")
 
-    # -- 10. the kernels' record --------------------------------------------
+    # -- 10. the sharded step: 8 ranks over torch.distributed ----------------
+    # Built above, in this process: the ranks find the libraries and run
+    # no nvcc. Every rank runs A and B on its own block; the collectives
+    # go through gloo, which stages CUDA buffers through host memory and
+    # lets the 8 ranks share one card (NCCL does not); NCCL only where 8
+    # cards are visible. Every block of every result is held exactly
+    # against the plain version, the single-rank path, the lost shards
+    # and zlib in the rank, and each rank's partial applies against the
+    # plain version on the same block.
+    torch.cuda.empty_cache()
+    world = 8
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    t_sh = time.perf_counter()
+    ranks = launch.launch(dryrun.multichip, world, backend=backend, device=None,
+                          args=(SHARDED_RUNS, KERNEL_REPS), deadline=480.0, timeout=300.0)
+    sharded = [sharded_summary(run, [r.result[i] for r in ranks])
+               for i, run in enumerate(SHARDED_RUNS)]
+    emit({"phase": "sharded", "backend": backend, "world": world,
+          "seconds": time.perf_counter() - t_sh, "runs": sharded})
+    sh_bad = [res for res in sharded if not res["held"]]
+    if sh_bad:
+        raise AssertionError(f"sharded step checks failed: {sh_bad}")
+
+    # -- 11. the kernels' record --------------------------------------------
     gf_main, crc_main = gf_results[0], crc_results[0]
     bm_main, probe_main = (next(x for x in bm_results
                                 if (x["case"], x["extract"], x["probe"], x["grid"]) == key)

@@ -12,6 +12,10 @@ of stripes, as the JAX package's ``cubefs_tpu/models/repair.py`` does:
 Both GF legs read the same first n_data survivors, so they run as ONE
 apply of the stacked coefficient rows: the survivors leave device memory
 once per step.
+
+``sharded_repair_step`` runs the step over a (dp, tp, sp) process mesh
+(``parallel/``): stripes over dp, shards over tp, bytes over sp; the
+reconstruct XOR-combines over tp and the CRC folds over sp.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import numpy as np
 import torch
 
 from ..ops import crc32_kernel, rs_kernel
+from ..parallel import sharded_codec
+from ..parallel.mesh import Mesh
 
 
 @dataclass(frozen=True)
@@ -80,3 +86,35 @@ def repair_step(plan: RepairPlan, surviving: torch.Tensor):
     recovered = out[:, :w]
     ok = (out[:, w:] == surviving[:, n:, :]).flatten(1).all(dim=1)
     return recovered, crc32_kernel.crc32_blocks(recovered), ok
+
+
+def sharded_repair_step(mesh: Mesh, plan: RepairPlan, local_surviving: torch.Tensor):
+    """Mesh-sharded repair: this rank's (B/dp, n_data/tp, S/sp) block of
+    the survivors in, its blocks of the results out.
+
+    The contract differs from repair_step's, as the reference's does: the
+    survivors are exactly the first n_data present shards (n_data must
+    divide by the mesh's tp), and there is NO integrity output (the
+    extras do not shard evenly over tp; check them with repair_step).
+    Returns (recovered (B/dp, W, S/sp) uint8, crcs (B/dp, W) int64
+    holding the unsigned CRC32 of each whole recovered shard); every tp
+    rank holds the same blocks.
+    """
+    tp, sp = mesh.dims["tp"], mesh.dims["sp"]
+    if local_surviving.dim() != 3 or local_surviving.shape[1] * tp != plan.n_data:
+        raise ValueError(f"sharded repair takes exactly n_data={plan.n_data} shards "
+                         f"({plan.n_data}/tp={tp} a rank), got a block of "
+                         f"{tuple(local_surviving.shape)} (drop the extra survivors)")
+    b, _, s = local_surviving.shape
+    apply, crc = _sharded_step_fns(mesh, plan, s * sp)
+    recovered = apply(local_surviving)
+    w = recovered.shape[1]
+    return recovered, crc(recovered.reshape(b * w, s)).reshape(b, w)
+
+
+@functools.lru_cache(maxsize=64)
+def _sharded_step_fns(mesh: Mesh, plan: RepairPlan, seg_len: int):
+    """The sharded step's apply and CRC functions for one mesh, plan and
+    shard length: the row solve and the rank's columns, built once."""
+    return (sharded_codec.gf_matrix_apply_sharded(mesh, plan.rows, plan.n_data),
+            sharded_codec.crc32_sharded(mesh, seg_len))
