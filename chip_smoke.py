@@ -31,8 +31,14 @@ spawned on the card (gloo, or NCCL where 8 cards are visible) run the
 encode, repair and CRC on a mixed (2, 2, 2) mesh at the repair case's
 width and on a dp-only (8, 1, 1) fleet, each rank on its own block
 through A and B, every block held exactly against the plain version,
-the single-rank path, the lost shards and zlib. Each phase prints one
-JSON line; any failure, in any rank, raises.
+the single-rank path, the lost shards and zlib. Before it, the codec
+service: the server's ``codec`` role started as its users start it
+(``python -m cubefs_tpu_torch.cmd``) in a process of its own, driven
+over its wire with ``http.client`` (8 MiB blobs over the body, 4 MiB
+shards through ``/dev/shm``, CRCs, verify, 32 concurrent clients, four
+refusals), every reply held against the plain versions and zlib, the
+coalescing and byte counts read from its ``/metrics``. Each phase
+prints one JSON line; any failure, in any rank, raises.
 
 The last lines are the kernels' record, the card's name and power limit
 as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -43,12 +49,17 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import functools
+import http.client
 import itertools
 import json
 import os
 import re
+import shutil
+import signal
+import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import zlib
@@ -75,6 +86,12 @@ SHARDED_RUNS = (
     {"name": "dp_only", "dims": {"dp": 8, "tp": 1, "sp": 1}, "seed": SEED + 1, "b": 64,
      "n": 12, "m": 4, "s": 256 << 10, "bad": [2, 13]},
 )
+# phase service: the codec role as its users start it ("listen_port": 0 takes
+# a free port), an access-layer blob (blob_size = 8 MiB: EC12P4 shards of
+# 699,051 bytes, A's byte-load path) and the timed calls a case makes
+SERVICE_CFG = {"role": "codec", "listen_port": 0}
+BLOB = 8 * MIB
+SERVICE_REPS = 5
 # the C and D instantiations the kernels' record reports: (case, extract, probe, grid)
 RECORDED_BM = (("tuning_rows_2x12_B4", "bcast", None, "flat"),
                ("tuning_rows_2x12_B4", "bcast", "nodot", "stripe"))
@@ -123,6 +140,59 @@ def sharded_summary(run: dict, per_rank: list[dict]) -> dict:
     return res
 
 
+def rpc_post(addr: str, method: str, args: dict, body: bytes = b"",
+             headers: dict | None = None) -> tuple[int, dict, bytes]:
+    """One call of the codec service's wire over a fresh connection, as
+    its native client makes it: (status, meta, payload)."""
+    host, port = addr.rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=300)
+    try:
+        conn.request("POST", f"/{method}", body=body,
+                     headers={"X-Rpc-Args": json.dumps(args), **(headers or {})})
+        resp = conn.getresponse()
+        payload = resp.read()
+        return resp.status, json.loads(resp.headers.get("X-Rpc-Resp") or "{}"), payload
+    finally:
+        conn.close()
+
+
+def scrape(addr: str) -> dict[str, float]:
+    """The server's ``GET /metrics`` as {series (name and labels): value}."""
+    host, port = addr.rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=60)
+    try:
+        conn.request("GET", "/metrics")
+        text = conn.getresponse().read().decode()
+    finally:
+        conn.close()
+    return {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1])
+            for ln in text.splitlines() if ln and not ln.startswith("#")}
+
+
+def start_server(root: str, cfg: dict, workdir: str) -> tuple[subprocess.Popen, str]:
+    """The port's codec role as its users start it, ``python -m
+    cubefs_tpu_torch.cmd -c <cfg>``; returns (process, address) once it
+    prints its listening line, or kills it and raises."""
+    path = os.path.join(workdir, "codec.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    err = open(os.path.join(workdir, "codec.err"), "w")
+    proc = subprocess.Popen([sys.executable, "-m", "cubefs_tpu_torch.cmd", "-c", path],
+                            cwd=root, stdout=subprocess.PIPE, stderr=err, text=True)
+    err.close()
+    line: list[str] = []
+    reader = threading.Thread(target=lambda: line.append(proc.stdout.readline()), daemon=True)
+    reader.start()
+    reader.join(180.0)
+    m = re.fullmatch(r"\[codec\] listening on (\S+)\n", line[0]) if line else None
+    if m is None:
+        proc.kill()
+        proc.wait(30)
+        with open(os.path.join(workdir, "codec.err")) as f:
+            raise AssertionError(f"the codec role did not start: {line} {f.read()[-4000:]}")
+    return proc, m.group(1)
+
+
 def main() -> int:
     import torch
 
@@ -133,6 +203,7 @@ def main() -> int:
     sys.path.insert(0, root)
     from cubefs_tpu_torch.codec import codemode as cm
     from cubefs_tpu_torch.codec import crc32block
+    from cubefs_tpu_torch.codec import hostio
     from cubefs_tpu_torch.codec.batcher import AdmittedEngine, BatchCodec
     from cubefs_tpu_torch.codec.encoder import CodecConfig, new_encoder
     from cubefs_tpu_torch.codec.engine import CudaEngine
@@ -205,6 +276,8 @@ def main() -> int:
     beta = msr_s // alpha
     msr_gf = rand(4, msr_total, msr_s)
     repair_helpers = tuple(range(1, msr_total))
+    blob_s = -(-BLOB // n)
+    svc_rows = rs_kernel.reconstruct_rows(n, n + m, list(plan.present), [1, 7])
     gf_cases = [  # (label, coeff, shards, out)
         ("repair_rs12p4_bad1_7_B4", step_rows, surviving[:, :n, :], None),
         ("encode_rs12p4_B8", gf256.parity_matrix(n, m), rand(8, n, SHARD), None),
@@ -226,6 +299,13 @@ def main() -> int:
         ("msr_repair_6x11_B4",
          rs_kernel.msr_repair_rows(msr_k, msr_total, msr_d, 0, repair_helpers),
          rand(4, msr_d, beta), None),
+        # phase service's shapes: 8 MiB blobs (S = 699,051, byte loads) over
+        # the HTTP body, 4 MiB shards through /dev/shm; encode, and the rows
+        # of shards 1 and 7 for reconstruct
+        ("service_encode_S699051_B4", gf256.parity_matrix(n, m), rand(4, n, blob_s), None),
+        ("service_reconstruct_2x12_S699051_B4", svc_rows, rand(4, n, blob_s), None),
+        ("service_encode_shm_B4", gf256.parity_matrix(n, m), rand(4, n, SHARD), None),
+        ("service_reconstruct_shm_2x12_B4", svc_rows, rand(4, n, SHARD), None),
     ]
     coeff_36x36 = gf_cases[4][1]
     gf_results = []
@@ -268,6 +348,7 @@ def main() -> int:
         ("frame_payload_views_512x4x65532", frame_rows[:, :, 4:]),
         ("odd_blocks_1000x1001", rand(1000, 1001)),
         ("short_blocks_4096x15", rand(4096, 15)),
+        ("service_blocks_1024x128KiB", rand(1024, 128 << 10)),
     ]
     crc_results = []
     for label, blocks in crc_cases:
@@ -800,7 +881,246 @@ def main() -> int:
         raise AssertionError(f"the tuning path did not launch both bit-matrix kernels: "
                              f"{tuning_launches}")
 
-    # -- 10. the sharded step: 8 ranks over torch.distributed ----------------
+    # -- 10. the codec service: the codec role, driven over its wire --------
+    # The server runs as its users start it, a process of its own on the
+    # card. This process drives it with http.client as the native client
+    # does (a connection a call, no body CRC) and holds every reply exactly
+    # against the plain versions on the card and zlib. ms: the whole RPC on
+    # the client's clock, median of SERVICE_REPS after one checked call.
+    # The server's device time for a case: its kernel's device_ms at the
+    # same shape (phases gf_apply and crc32_blocks, from the profiler) and
+    # the copies in and out (codec/hostio.py) between CUDA events in this
+    # process on the same request. (Profiler traces taken this late in the
+    # run lost the first record of most sessions, in a probe and in this
+    # phase, so none is taken here.) Launches: the server's
+    # cubefs_codec_kernel_launches_total, read from its /metrics.
+    torch.cuda.empty_cache()
+    t_svc = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="cubefs-smoke-")
+    proc, addr = start_server(root, SERVICE_CFG, workdir)
+    svc_cases, shm_paths = [], []
+    kernel_case = {r["case"]: r for r in gf_results + crc_results}
+
+    def server_launches() -> dict[str, int]:
+        got = scrape(addr)
+        return {k: int(got.get(f'cubefs_codec_kernel_launches_total{{kernel="{k}"}}', 0))
+                for k in _build.KERNELS}
+
+    def svc_case(label: str, method: str, args: dict, body: bytes, moved: int, check,
+                 kernel: str | None, y: torch.Tensor, src, shape: tuple, out=None) -> None:
+        """One checked call, then SERVICE_REPS timed ones; the device time
+        of the ``kernel`` case at its shape, and the service's copy in
+        (``src`` to ``shape``) and copy out (of its result ``y``, into
+        ``out`` or a new pinned tensor) in this process."""
+        before = server_launches()
+        status, meta, payload = rpc_post(addr, method, args, body)
+        ok = status == 200 and bool(check(meta, payload))
+        times = []
+        for _ in range(SERVICE_REPS):
+            t = time.perf_counter()
+            ok = rpc_post(addr, method, args, body)[0] == 200 and ok
+            times.append((time.perf_counter() - t) * 1e3)
+        after = server_launches()
+        ms = statistics.median(times)
+        res = {"case": label, "method": method, "args": {k: v for k, v in args.items()
+                                                         if k != "shm"},
+               "bytes_in": moved, "equal": ok, "ms": ms, "ms_runs": times,
+               "gib_s": moved / (ms / 1e3) / 2**30, "calls": 1 + SERVICE_REPS,
+               "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]},
+               "to_device_ms": time_ms(lambda: hostio.to_device(src, shape, dev), KERNEL_REPS),
+               "to_host_ms": time_ms(lambda: hostio.to_host(y, out=out), KERNEL_REPS)}
+        if kernel is not None:
+            k = kernel_case[kernel]
+            res.update({"kernel_case": kernel, "kernel_device_ms": k["device_ms"],
+                        "kernel_bound_ms": k["bound_ms"], "kernel_bound_share": k["bound_share"]})
+        svc_cases.append(res)
+
+    def to_bytes(x: torch.Tensor) -> bytes:
+        return x.cpu().numpy().tobytes()
+
+    def shm_file(nbytes: int, data: bytes) -> str:
+        fd, path = tempfile.mkstemp(prefix="cubefs-codec-", dir="/dev/shm")
+        shm_paths.append(path)
+        os.ftruncate(fd, nbytes)
+        os.close(fd)
+        mm = shm_view(path)
+        mm[: len(data)] = np.frombuffer(data, np.uint8)
+        mm.flush()
+        return path
+
+    def shm_view(path: str) -> np.memmap:
+        return np.memmap(path, dtype=np.uint8, mode="r+")
+
+    def shm_tail(path: str, nbytes: int) -> bytes:
+        with open(path, "rb") as f:
+            f.seek(-nbytes, os.SEEK_END)
+            return f.read()
+
+    try:
+        # encode and reconstruct of 8 MiB blobs over the HTTP body, B = 4
+        enc_rows = gf256.parity_matrix(n, m)
+        blob = rand(4, n + m, blob_s)
+        blob[:, n:] = plain(enc_rows, blob[:, :n])
+        data_b = to_bytes(blob[:, :n])
+        geo = {"n": n, "m": m, "shard_size": blob_s, "batch": 4}
+        want = to_bytes(blob[:, n:])
+        svc_case("encode_EC12P4_8MiB_blobs_B4", "encode", geo, data_b, len(data_b),
+                 lambda meta, p: meta == {"shape": [4, m, blob_s]} and p == want,
+                 "service_encode_S699051_B4", blob[:, n:].contiguous(), data_b, (4, n, blob_s))
+        present = list(plan.present)
+        rec_args = {"n": n, "total": n + m, "present": present, "wanted": [1, 7],
+                    "shard_size": blob_s, "batch": 4}
+        surv = blob[:, present[:n]].contiguous()
+        want_rec = to_bytes(plain(svc_rows, surv))
+        lost = to_bytes(blob[:, [1, 7]])
+        surv_b = to_bytes(surv)
+        svc_case("reconstruct_EC12P4_8MiB_blobs_bad1_7_B4", "reconstruct", rec_args, surv_b,
+                 surv.numel(), lambda meta, p: meta == {"shape": [4, 2, blob_s]}
+                 and p == want_rec == lost, "service_reconstruct_2x12_S699051_B4",
+                 blob[:, [1, 7]], surv_b, surv.shape)
+        vstripes = blob.clone()
+        vstripes[1, n + 2, blob_s // 3] ^= 0x5A
+        vplain = [bool(torch.equal(plain(enc_rows, vstripes[i:i + 1, :n]), vstripes[i:i + 1, n:]))
+                  for i in range(4)]
+        vs_b = to_bytes(vstripes)
+        svc_case("verify_EC12P4_8MiB_blobs_B4_one_corrupt", "verify", geo, vs_b,
+                 vstripes.numel(), lambda meta, p: meta == {"ok": vplain}
+                 and vplain == [True, False, True, True],
+                 "service_encode_S699051_B4", torch.zeros(4, dtype=torch.bool, device=dev),
+                 vs_b, vstripes.shape)
+        del blob, surv, vstripes, data_b, surv_b, vs_b
+
+        # the same math through /dev/shm, 4 MiB shards, B = 4
+        need = 4 * (n + m) * SHARD
+        shm_fs = os.statvfs("/dev/shm")
+        free = shm_fs.f_bavail * shm_fs.f_frsize
+        if free < need:
+            raise AssertionError(f"/dev/shm has {free} bytes free; the shm cases need {need}")
+        x = rand(4, n, SHARD)
+        want = to_bytes(plain(enc_rows, x))
+        path = shm_file(need, to_bytes(x))
+        mm = shm_view(path)
+        svc_case("encode_shm_EC12P4_4MiB_B4", "encode_shm",
+                 {"n": n, "m": m, "shard_size": SHARD, "batch": 4, "shm": path}, b"", x.numel(),
+                 lambda meta, p: meta == {"shape": [4, m, SHARD], "offset": x.numel()}
+                 and shm_tail(path, len(want)) == want,
+                 "service_encode_shm_B4", plain(enc_rows, x), mm[:x.numel()], x.shape,
+                 mm[x.numel():])
+        del mm
+        os.unlink(path)
+        want = to_bytes(plain(svc_rows, x))
+        path = shm_file(4 * (n + 2) * SHARD, to_bytes(x))
+        mm = shm_view(path)
+        svc_case("reconstruct_shm_EC12P4_4MiB_bad1_7_B4", "reconstruct_shm",
+                 dict(rec_args, shard_size=SHARD, shm=path), b"", x.numel(),
+                 lambda meta, p: meta == {"shape": [4, 2, SHARD], "offset": x.numel()}
+                 and shm_tail(path, len(want)) == want,
+                 "service_reconstruct_shm_2x12_B4", plain(svc_rows, x), mm[:x.numel()],
+                 x.shape, mm[x.numel():])
+        del mm
+        os.unlink(path)
+        del x
+
+        # CRCs: datanode packets, and odd rows on B's byte path
+        for label, blocks, kernel in (
+                ("crc32_1024x128KiB", rand(1024, 128 << 10), "service_blocks_1024x128KiB"),
+                ("crc32_1000x1001", rand(1000, 1001), "odd_blocks_1000x1001")):
+            b_, block_len = blocks.shape
+            body = to_bytes(blocks)
+            want_crc = crc32_kernel.crc32_blocks_plain(blocks).cpu().numpy().astype("<u4")
+            zl = np.asarray([zlib.crc32(body[i * block_len:(i + 1) * block_len])
+                             for i in range(b_)], dtype="<u4")
+            svc_case(label, "crc32", {"block_len": block_len}, body, len(body),
+                     lambda meta, p, b_=b_, w=want_crc, z=zl: meta == {"count": b_}
+                     and p == w.tobytes() == z.tobytes() and int(z.max()) >= 1 << 31,
+                     kernel, crc32_kernel.crc32_blocks_plain(blocks), body, blocks.shape)
+            del blocks, body
+
+        # 32 threads x 8 encodes of a 1 MiB blob each, all at once
+        n_threads, per_thread = 32, 8
+        small_s = -(-PUT // n)
+        small = rand(n_threads * per_thread, n, small_s)
+        small_want = [to_bytes(plain(enc_rows, small[i:i + 32])) for i in range(0, len(small), 32)]
+        small_want = [w[j * m * small_s:(j + 1) * m * small_s]
+                      for w in small_want for j in range(32)]
+        bodies = [to_bytes(small[i]) for i in range(len(small))]
+        replies, call_ms = [None] * len(bodies), [0.0] * len(bodies)
+        start = threading.Barrier(n_threads)
+        small_args = {"n": n, "m": m, "shard_size": small_s}
+
+        def client(i: int) -> None:
+            start.wait(60.0)
+            for j in range(per_thread):
+                k = i * per_thread + j
+                t = time.perf_counter()
+                replies[k] = rpc_post(addr, "encode", small_args, bodies[k])
+                call_ms[k] = (time.perf_counter() - t) * 1e3
+
+        keys = {"steps": 'cubefs_codec_batch_steps_total{op="encode",engine="cuda"}',
+                "submissions": 'cubefs_codec_batch_submissions_total{op="encode"}',
+                "bytes": 'cubefs_codec_bytes_total{op="encode",engine="cuda"}',
+                "launches": 'cubefs_codec_kernel_launches_total{kernel="gf_apply"}'}
+        m0 = scrape(addr)
+        t = time.perf_counter()
+        with ThreadPoolExecutor(n_threads) as pool:
+            for f in [pool.submit(client, i) for i in range(n_threads)]:
+                f.result()
+        wall = time.perf_counter() - t
+        m1 = scrape(addr)
+        conc = {k: m1.get(v, 0.0) - m0.get(v, 0.0) for k, v in keys.items()}
+        sent = sum(len(b) for b in bodies)
+        conc.update({
+            "threads": n_threads, "calls": len(bodies), "shard_size": small_s,
+            "bytes_sent": sent, "seconds": wall, "gib_s": sent / wall / 2**30,
+            "ms": statistics.median(call_ms), "ms_max": max(call_ms),
+            "equal": all(r == (200, {"shape": [1, m, small_s]}, w)
+                         for r, w in zip(replies, small_want))})
+        conc["held"] = (conc["equal"] and conc["submissions"] == len(bodies)
+                        and 0 < conc["steps"] < conc["submissions"]
+                        and conc["bytes"] == sent and conc["launches"] == conc["steps"])
+        del small, small_want, bodies, replies
+
+        # refusals: the server says no, and touches nothing
+        refusals = {
+            "unsorted_present": rpc_post(addr, "reconstruct",
+                                         dict(rec_args, present=present[::-1]))[:2],
+            "shm_path_escape": rpc_post(addr, "encode_shm", dict(
+                geo, shm="/dev/shm/cubefs-codec-x/../../etc/passwd"))[:2],
+            "shm_outside_prefix": rpc_post(addr, "encode_shm", dict(geo, shm="/etc/passwd"))[:2],
+            "body_crc_mismatch": rpc_post(addr, "crc32", {"block_len": 4}, bytes(8),
+                                          {"X-Rpc-Crc": "1"})[:2],
+        }
+        svc_launches = server_launches()
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            server_exit = proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+            server_exit = None
+        for path in shm_paths:
+            if os.path.exists(path):
+                os.unlink(path)
+        shutil.rmtree(workdir, ignore_errors=True)
+    service = {"server": addr, "seconds": time.perf_counter() - t_svc, "cases": svc_cases,
+               "concurrency": conc, "refusals": refusals, "launches": svc_launches,
+               "server_exit": server_exit}
+    emit({"phase": "service", **service})
+    svc_checks = {
+        **{f"{c['case']}.equal": c["equal"] for c in svc_cases},
+        "concurrency": conc["held"],
+        "refusals_400": all(st_ == 400 for st_, _ in refusals.values()),
+        "launched_a_and_b_only": (svc_launches["gf_apply"] > 0 and svc_launches["crc32_blocks"] > 0
+                                  and all(v == 0 for k, v in svc_launches.items()
+                                          if k not in MAIN_KERNELS)),
+        "server_exit_0": server_exit == 0,
+    }
+    failed = [k for k, v in svc_checks.items() if not v]
+    if failed:
+        raise AssertionError(f"service checks failed: {failed}")
+
+    # -- 11. the sharded step: 8 ranks over torch.distributed ----------------
     # Built above, in this process: the ranks find the libraries and run
     # no nvcc. Every rank runs A and B on its own block; the collectives
     # go through gloo, which stages CUDA buffers through host memory and
@@ -823,7 +1143,7 @@ def main() -> int:
     if sh_bad:
         raise AssertionError(f"sharded step checks failed: {sh_bad}")
 
-    # -- 11. the kernels' record --------------------------------------------
+    # -- 12. the kernels' record --------------------------------------------
     gf_main, crc_main = gf_results[0], crc_results[0]
     bm_main, probe_main = (next(x for x in bm_results
                                 if (x["case"], x["extract"], x["probe"], x["grid"]) == key)
@@ -831,7 +1151,8 @@ def main() -> int:
     emit({"kernels": [
         {"name": "gf_apply", "route": "cuda", "source": "cubefs_tpu_torch/csrc/gf_apply.cu",
          "replaces": "cubefs_tpu/ops/pallas_gf.py:46", "shape": gf_main["case"],
-         "launches": launches["gf_apply"], "equal": gf_main["equal"],
+         "launches": launches["gf_apply"], "service_launches": svc_launches["gf_apply"],
+         "equal": gf_main["equal"],
          "max_abs_err": gf_main["max_abs_err"], "ms": gf_main["ms"],
          "device_ms": gf_main["device_ms"], "plain_ms": gf_main["plain_ms"],
          "bound_ms": gf_main["bound_ms"],
@@ -839,7 +1160,8 @@ def main() -> int:
         {"name": "crc32_blocks", "route": "cuda",
          "source": "cubefs_tpu_torch/csrc/crc32_blocks.cu",
          "replaces": "cubefs_tpu/ops/pallas_crc.py:44", "shape": crc_main["case"],
-         "launches": launches["crc32_blocks"], "equal": crc_main["equal"],
+         "launches": launches["crc32_blocks"],
+         "service_launches": svc_launches["crc32_blocks"], "equal": crc_main["equal"],
          "max_abs_err": crc_main["max_abs_err"], "ms": crc_main["ms"],
          "device_ms": crc_main["device_ms"], "plain_ms": crc_main["plain_ms"],
          "bound_ms": crc_main["bound_ms"],

@@ -37,6 +37,11 @@ The reference also splits drained steps over a device mesh and retries
 a failed engine through a fallback chain; neither is carried over. A
 failure goes to the step's futures.
 
+Counters (``utils/metrics.py``, where the reference increments them):
+stripes admitted per swap, device steps per engine call, stripes per
+step, each submission's wait for its step, submitters that met
+backpressure, and submissions rejected alone.
+
 Knobs (environment, read at construction):
   CUBEFS_CODEC_BATCH=0        submissions call the engine directly
   CUBEFS_CODEC_BATCH_MAX      most stripes per device step (1024)
@@ -55,6 +60,7 @@ import numpy as np
 import torch
 
 from .. import device as devlib
+from ..utils import metrics
 from .engine import CudaEngine
 
 
@@ -75,7 +81,7 @@ class CodecFuture:
     by the time it is collected."""
 
     __slots__ = ("arr", "out", "stripes", "value", "exc", "done", "event", "stream",
-                 "finished", "_batcher", "_key")
+                 "finished", "enq_t", "_batcher", "_key")
 
     def __init__(self, batcher: "BatchCodec", key: tuple, arr: torch.Tensor,
                  out: torch.Tensor | None):
@@ -90,6 +96,7 @@ class CodecFuture:
         # step's event if it ran on another
         self.stream: torch.cuda.Stream | None = None
         self.finished: torch.cuda.Event | None = None
+        self.enq_t = time.perf_counter()
         self._batcher = batcher
         self._key = key
 
@@ -257,6 +264,7 @@ class BatchCodec:
             deadline = None
             while self._pending + sub.stripes > self.max_pending and self._n_busy > 0:
                 if deadline is None:
+                    metrics.codec_batch_backpressure.inc(op=key[0])
                     deadline = time.monotonic() + timeout
                 remaining = deadline - time.monotonic()
                 if remaining <= 0 or not self._cond.wait(remaining):
@@ -303,6 +311,7 @@ class BatchCodec:
                         return
                     q.subs = []
                 total = sum(s.stripes for s in batch)
+                metrics.codec_batch_submissions.inc(total, op=key[0])
                 steps = 0
                 try:
                     steps = self._run_steps(key, q, batch)
@@ -353,6 +362,7 @@ class BatchCodec:
                 # the key fixes the shape; the dtype is the one thing left
                 # to reject, alone (a concatenation would upcast the step)
                 if sub.arr.dtype != torch.uint8:
+                    metrics.codec_batch_errors.inc(op=op, kind="dtype")
                     sub.resolve(None, CodecAdmissionError(
                         f"{op}: stripe dtype must be uint8, got {sub.arr.dtype}"))
                     continue
@@ -373,6 +383,8 @@ class BatchCodec:
         return steps
 
     def _one_step(self, key: tuple, q: _GeometryQueue, step: list[CodecFuture]) -> None:
+        now = time.perf_counter()
+        metrics.codec_batch_wait.observe_many([now - s.enq_t for s in step], op=key[0])
         try:
             others = self._join_streams(key, step)
             if len(step) == 1:  # the caller's own tensors, no copy
@@ -390,6 +402,7 @@ class BatchCodec:
                     off = end
             if others:
                 self._hand_back(key, step, others, out)
+            metrics.codec_batch_stripes.observe(sum(s.stripes for s in step), op=key[0])
         except Exception as e:  # the step's failure goes to its submissions
             for sub in step:
                 sub.resolve(None, e)
@@ -430,8 +443,11 @@ class BatchCodec:
     def _engine_call(self, key: tuple, eng: CudaEngine, coeff: np.ndarray | None,
                      arr: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
         if key[0] == "encode":
-            return eng.encode_parity(arr, key[3], out=out)
-        return eng.matrix_apply(coeff, arr, out=out)
+            y = eng.encode_parity(arr, key[3], out=out)
+        else:
+            y = eng.matrix_apply(coeff, arr, out=out)
+        metrics.codec_batch_steps.inc(op=key[0], engine=eng.name)
+        return y
 
 
 class AdmittedEngine:

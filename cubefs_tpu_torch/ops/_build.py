@@ -11,7 +11,9 @@ one nvcc per missing library, all at once.
 
 ``LAUNCHES`` counts successful kernel launches per kernel. ``launch()``
 is the only place that adds to it, so a run that resets the counts and
-reads them afterwards sees which kernels its path went through.
+reads them afterwards sees which kernels its path went through. It also
+adds to ``cubefs_codec_kernel_launches_total`` (``utils/metrics.py``),
+which a server exports at ``GET /metrics``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import os
 import subprocess
 import threading
 import time
+
+from ..utils import metrics
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
@@ -56,6 +60,7 @@ SYMBOLS = ("gf_apply_kernel", "crc32_span_kernel", "gf_bitmajor_kernel")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()  # launches come from every serving thread
 _launchers: dict[str, ctypes._CFuncPtr] = {}
 _errstr: dict[str, ctypes._CFuncPtr] = {}
 
@@ -155,4 +160,6 @@ def launch(name: str, *args) -> None:
     if code:
         msg = _errstr[name](code).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} ({msg})")
-    LAUNCHES[name] += 1
+    with _count_lock:
+        LAUNCHES[name] += 1
+    metrics.kernel_launches.inc(kernel=name)

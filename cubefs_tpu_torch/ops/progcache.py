@@ -9,8 +9,10 @@ holds at most ``CUBEFS_CODEC_PROGCACHE_CAP`` entries (default 256, at
 least 8).
 
 ``cached(family)`` is the ``functools.lru_cache`` drop-in the kernel
-modules use; it keeps a functools-shaped ``cache_info()``. The
-reference's metrics counters are not carried over.
+modules use; it keeps a functools-shaped ``cache_info()``. Traffic is
+counted as the reference counts it:
+``cubefs_codec_program_cache_total{family,event=hit|miss|evict}`` and
+the resident-entries gauge (``utils/metrics.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import collections
 import functools
 import os
 import threading
+
+from ..utils import metrics
 
 CacheInfo = collections.namedtuple("CacheInfo", ["hits", "misses", "maxsize", "currsize"])
 
@@ -46,7 +50,9 @@ class ProgramCache:
         with self._lock:
             if full in self._entries:
                 self._entries.move_to_end(full)
+                metrics.codec_program_cache.inc(family=family, event="hit")
                 return True, self._entries[full]
+        metrics.codec_program_cache.inc(family=family, event="miss")
         return False, None
 
     def put(self, family: str, key, value) -> None:
@@ -55,7 +61,9 @@ class ProgramCache:
             self._entries[full] = value
             self._entries.move_to_end(full)
             while len(self._entries) > self.capacity:
-                self._entries.popitem(last=False)
+                (old_family, _), _ = self._entries.popitem(last=False)
+                metrics.codec_program_cache.inc(family=old_family, event="evict")
+            metrics.codec_program_cache_entries.set(len(self._entries))
 
     def __len__(self) -> int:
         with self._lock:
@@ -96,6 +104,7 @@ def cached(family: str):
             with SHARED._lock:
                 for k in [k for k in SHARED._entries if k[0] == family and k[1][0] == prefix]:
                     del SHARED._entries[k]
+                metrics.codec_program_cache_entries.set(len(SHARED._entries))
             stats["hits"] = stats["misses"] = 0
 
         wrapper.cache_info = cache_info

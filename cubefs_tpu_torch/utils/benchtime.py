@@ -100,7 +100,11 @@ def kernel_ms(fn, reps: int) -> dict[str, float]:
         one, many = _trace(fn, 1), _trace(fn, reps)
         if whole(one, many, reps, launched):
             return {name: ms / reps for name, (_, ms) in many.items()}
-    raise RuntimeError(f"{TRACE_TRIES} profiler traces in a row lost CUDA records")
+    counts = {name[:60]: (one.get(name, (0,))[0], many.get(name, (0,))[0])
+              for name in one.keys() | many.keys()}
+    raise RuntimeError(f"{TRACE_TRIES} profiler traces in a row lost CUDA records; the last "
+                       f"pair's records by name (1 run, {reps} runs), {launched} launches of "
+                       f"the port's kernels in one run: {counts}")
 
 
 def device_ms(fn, reps: int, kernel: str) -> float:

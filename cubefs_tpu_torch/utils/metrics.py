@@ -1,0 +1,194 @@
+"""Metrics: a Prometheus-style registry and its text exposition.
+
+The port's trimmed copy of ``cubefs_tpu/utils/metrics.py``: the
+registry, its three metric types and the families of the codec plane
+under the reference's names, labels and buckets (the RPC transport,
+``codec_bytes``, the batcher's ``codec_batch_*`` and the rows cache's
+``codec_program_cache*``). Any RPC server mounts ``render_text()`` at
+``GET /metrics``. Left out: the dp-split family (the port's batcher has
+no dp split), the file-system and blob families and the SLO hooks.
+
+Added here: ``cubefs_codec_kernel_launches_total``, the launches of each
+CUDA kernel, counted where ``ops/_build.launch`` counts them.
+"""
+
+from __future__ import annotations
+
+import bisect
+import threading
+
+
+class _Metric:
+    def __init__(self, name: str, help_: str, labels: tuple[str, ...]):
+        self.name = name
+        self.help = help_
+        self.label_names = labels
+        self._series: dict[tuple, object] = {}
+        self._lock = threading.Lock()
+
+    def _key(self, labels: dict) -> tuple:
+        return tuple(str(labels.get(k, "")) for k in self.label_names)
+
+
+class Counter(_Metric):
+    TYPE = "counter"
+
+    def inc(self, value: float = 1.0, **labels) -> None:
+        k = self._key(labels)
+        with self._lock:
+            self._series[k] = self._series.get(k, 0.0) + value
+
+    def value(self, **labels) -> float:
+        with self._lock:
+            return self._series.get(self._key(labels), 0.0)
+
+    def samples(self):
+        with self._lock:
+            return list(self._series.items())
+
+
+class Gauge(Counter):
+    TYPE = "gauge"
+
+    def set(self, value: float, **labels) -> None:
+        with self._lock:
+            self._series[self._key(labels)] = float(value)
+
+
+class Histogram(_Metric):
+    TYPE = "histogram"
+    BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5, 10, 60)
+
+    def __init__(self, name, help_, labels, buckets=None):
+        super().__init__(name, help_, labels)
+        # latency series keep the class default, count-shaped ones
+        # (stripes per step) pass integer bounds
+        self.BUCKETS = tuple(buckets) if buckets is not None else self.BUCKETS
+
+    def observe(self, value: float, **labels) -> None:
+        self.observe_many((value,), **labels)
+
+    def observe_many(self, values, **labels) -> None:
+        """Record several samples under one lock acquisition (the waits
+        of every submission of one drained step)."""
+        if not values:
+            return
+        k = self._key(labels)
+        with self._lock:
+            s = self._series.get(k)
+            if s is None:
+                s = self._series[k] = {"count": 0, "sum": 0.0,
+                                       "buckets": [0] * len(self.BUCKETS)}
+            for value in values:
+                s["count"] += 1
+                s["sum"] += value
+                for j in range(bisect.bisect_left(self.BUCKETS, value), len(self.BUCKETS)):
+                    s["buckets"][j] += 1
+
+    def samples(self):
+        with self._lock:
+            return [(k, dict(v, buckets=list(v["buckets"]))) for k, v in self._series.items()]
+
+
+class Registry:
+    def __init__(self):
+        self._metrics: dict[str, _Metric] = {}
+        self._lock = threading.Lock()
+
+    def _get(self, cls, name, help_, labels, **kw):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = self._metrics[name] = cls(name, help_, tuple(labels), **kw)
+            return m
+
+    def counter(self, name, help_="", labels=()) -> Counter:
+        return self._get(Counter, name, help_, labels)
+
+    def gauge(self, name, help_="", labels=()) -> Gauge:
+        return self._get(Gauge, name, help_, labels)
+
+    def histogram(self, name, help_="", labels=(), buckets=None) -> Histogram:
+        return self._get(Histogram, name, help_, labels, buckets=buckets)
+
+    def render_text(self) -> str:
+        """Prometheus exposition format."""
+        out = []
+        with self._lock:
+            metrics = list(self._metrics.values())
+        for m in metrics:
+            out.append(f"# HELP {m.name} {m.help}")
+            out.append(f"# TYPE {m.name} {m.TYPE}")
+            if isinstance(m, Histogram):
+                for k, s in m.samples():
+                    lbl = _labels(m.label_names, k)
+                    for bound, cum in zip(m.BUCKETS, s["buckets"]):
+                        le = _labels(m.label_names + ("le",), k + (str(bound),))
+                        out.append(f"{m.name}_bucket{le} {cum}")
+                    inf = _labels(m.label_names + ("le",), k + ("+Inf",))
+                    out.append(f"{m.name}_bucket{inf} {s['count']}")
+                    out.append(f"{m.name}_sum{lbl} {s['sum']}")
+                    out.append(f"{m.name}_count{lbl} {s['count']}")
+            else:
+                for k, v in m.samples():
+                    out.append(f"{m.name}{_labels(m.label_names, k)} {v}")
+        return "\n".join(out) + "\n"
+
+
+def _labels(names, values) -> str:
+    if not names:
+        return ""
+    return "{" + ",".join(f'{n}="{v}"' for n, v in zip(names, values)) + "}"
+
+
+DEFAULT = Registry()
+
+
+def render_text() -> str:
+    """The process-wide registry in Prometheus text."""
+    return DEFAULT.render_text()
+
+
+# the RPC transport and the codec service
+rpc_requests = DEFAULT.counter("cubefs_rpc_requests_total",
+                               "RPC requests served", ("method", "code"))
+rpc_latency = DEFAULT.histogram("cubefs_rpc_latency_seconds",
+                                "RPC handler latency", ("method",))
+codec_bytes = DEFAULT.counter("cubefs_codec_bytes_total",
+                              "bytes through the EC codec", ("op", "engine"))
+
+# batched codec admission (codec/batcher.py): device-sized steps
+codec_batch_submissions = DEFAULT.counter(
+    "cubefs_codec_batch_submissions_total",
+    "stripes submitted through the codec admission surface", ("op",))
+codec_batch_steps = DEFAULT.counter(
+    "cubefs_codec_batch_steps_total",
+    "drained device steps (each is ONE engine dispatch)",
+    ("op", "engine"))
+codec_batch_stripes = DEFAULT.histogram(
+    "cubefs_codec_batch_stripes_per_step",
+    "stripes coalesced per drained device step (1 = uncontended)",
+    ("op",), buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024))
+codec_batch_wait = DEFAULT.histogram(
+    "cubefs_codec_batch_wait_seconds",
+    "submit-to-device-step admission wait", ("op",))
+codec_batch_backpressure = DEFAULT.counter(
+    "cubefs_codec_batch_backpressure_total",
+    "submissions that blocked on the bounded pending queue", ("op",))
+codec_batch_errors = DEFAULT.counter(
+    "cubefs_codec_batch_errors_total",
+    "per-submission errors fanned back by the drainer", ("op", "kind"))
+
+# the shared rows cache (ops/progcache.py)
+codec_program_cache = DEFAULT.counter(
+    "cubefs_codec_program_cache_total",
+    "compiled-program cache traffic by kernel family and event "
+    "(hit / miss / evict)", ("family", "event"))
+codec_program_cache_entries = DEFAULT.gauge(
+    "cubefs_codec_program_cache_entries",
+    "entries resident in the shared compiled-program cache")
+
+# the port's CUDA kernels (ops/_build.py)
+kernel_launches = DEFAULT.counter(
+    "cubefs_codec_kernel_launches_total",
+    "CUDA kernel launches by kernel", ("kernel",))

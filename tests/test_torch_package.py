@@ -14,10 +14,11 @@ import pytest
 import torch
 
 import cubefs_tpu_torch
-from cubefs_tpu_torch import convert, device
+from cubefs_tpu_torch import cmd, convert, device
 from cubefs_tpu_torch.codec import codemode as tcm
 from cubefs_tpu_torch.codec import engine
 from cubefs_tpu_torch.codec.encoder import CodecConfig, new_encoder
+from cubefs_tpu_torch.codec.service import CodecService
 from cubefs_tpu_torch.ops import (_build, crc32_kernel, crc_cuda, gf256, gf_bitmajor, gf_cuda,
                                   rs_kernel)
 
@@ -68,6 +69,10 @@ def test_entry_points_raise_without_a_gpu():
         engine.get_engine("cuda")
     with pytest.raises(RuntimeError):
         convert.from_reference(np.zeros((1, 9, 8), np.uint8), 6, 3, [0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CodecService()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cmd.run_role({"role": "codec", "listen_port": 0})
     assert device.resolve("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         device.resolve("meta")
