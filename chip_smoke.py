@@ -92,6 +92,12 @@ SHARDED_RUNS = (
 SERVICE_CFG = {"role": "codec", "listen_port": 0}
 BLOB = 8 * MIB
 SERVICE_REPS = 5
+# phase engines: the five legs of the codec engine layer, the stripe sizes
+# of the crossover's classes, the beyond-table step and the concurrent PUTs
+LEGS = ("cuda", "cpp", "cpp-xor", "numpy-xor", "numpy")
+BEYOND_TABLE = 64 * MIB
+ENGINE_THREADS, ENGINE_PUTS = 32, 8
+ENGINES_CFG = {"role": "codec", "listen_port": 0, "ec_engine": "auto"}
 # the C and D instantiations the kernels' record reports: (case, extract, probe, grid)
 RECORDED_BM = (("tuning_rows_2x12_B4", "bcast", None, "flat"),
                ("tuning_rows_2x12_B4", "bcast", "nodot", "stripe"))
@@ -191,6 +197,276 @@ def start_server(root: str, cfg: dict, workdir: str) -> tuple[subprocess.Popen, 
         with open(os.path.join(workdir, "codec.err")) as f:
             raise AssertionError(f"the codec role did not start: {line} {f.read()[-4000:]}")
     return proc, m.group(1)
+
+
+def cpu_model() -> str:
+    """The host CPU as /proc/cpuinfo gives its first processor: the model
+    name, then vendor, family, model and stepping (a sandboxed kernel may
+    report the name as "unknown"), and the SIMD flags the host legs use."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for ln in f:
+            if not ln.strip():
+                break
+            key, _, value = ln.partition(":")
+            info[key.strip()] = value.strip()
+    flags = [f for f in ("ssse3", "avx2", "avx512f", "avx512bw", "gfni")
+             if f in info.get("flags", "").split()]
+    return (f"{info.get('model name', '?')} ({info.get('vendor_id', '?')} family "
+            f"{info.get('cpu family', '?')} model {info.get('model', '?')} stepping "
+            f"{info.get('stepping', '?')}, {info.get('cpu MHz', '?')} MHz; "
+            f"{' '.join(flags)})")
+
+
+def engines_phase(root: str, dev, card: str, *, shard: int = SHARD, blob: int = BLOB,
+                  beyond: int = BEYOND_TABLE, put: int = PUT, sizes=None,
+                  server_cfg: dict = ENGINES_CFG, crc_rows: tuple = (1024, 128 << 10)) -> dict:
+    """Phase ``engines``: the codec engine layer on this host and card.
+
+    The five legs agree byte for byte on the EC12P4 encode at ``shard``
+    and at the shard size of a ``blob``, the (2, 12) recovery rows of
+    shards 1 and 7, the composed EC16P20L2 rows and an EC6P6MSR repair
+    matrix; ``measure_crossover`` times the legs at the reference's sizes
+    and persists the table; ``auto`` routes a 64 KiB stripe to the
+    table's leg and a step beyond the table to ``cuda`` (kernel A, one
+    launch); the ``CUBEFS_CODEC_DEAD=cuda`` drill serves it by ``cpp``,
+    logged, and clearing it restores ``cuda``; 32 threads of numpy PUTs
+    go through the batcher under ``auto``; and a second codec role with
+    ``ec_engine: auto`` answers encode and crc32 from the table just
+    persisted. Every leg's time is its whole call, numpy in to numpy out
+    (the ``cuda`` leg's copies in and out included), and its GiB/s the
+    stripe's input bytes over that time. Returns the phase's record with
+    ``checks``; the caller fails on any false one."""
+    import logging
+
+    from cubefs_tpu_torch.codec import codemode as cm
+    from cubefs_tpu_torch.codec import engine as engines
+    from cubefs_tpu_torch.codec.batcher import AdmittedEngine, BatchCodec
+    from cubefs_tpu_torch.codec.encoder import CodecConfig, new_encoder
+    from cubefs_tpu_torch.ops import _build, gf256, gfcpu, msr, rs_kernel
+    from cubefs_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 9)
+    host = {"card": card, "cpu_model": cpu_model(), "gf_cpu_level": gfcpu.cpu_level(),
+            "cpu_count": os.cpu_count()}
+    print(json.dumps({"phase": "engines", "host": host}), flush=True)
+    os.environ.pop("CUBEFS_CODEC_DEAD", None)
+    os.environ.pop("CUBEFS_CODEC_XOR", None)
+    _build.reset_launches()
+
+    def call(leg: str, coeff, x) -> tuple[np.ndarray, float]:
+        t = time.perf_counter()
+        y = engines.host_call(leg, "matrix_apply", dev, coeff, x)
+        return y, time.perf_counter() - t
+
+    # -- the five legs agree --------------------------------------------------
+    n, m = 12, 4
+    blob_s = -(-blob // n)
+    present = [i for i in range(n + m) if i not in (1, 7)]
+    lrc_rows = new_encoder(CodecConfig(cm.CodeMode.EC16P20L2, engine="numpy"))._encode_rows
+    msr_t = cm.tactic(cm.CodeMode.EC6P6MSR)
+    helpers = tuple(range(1, msr_t.total))
+    beta = new_encoder(CodecConfig(cm.CodeMode.EC6P6MSR, engine="numpy")).shard_size(
+        3 * blob) // msr_t.alpha
+    agree_cases = [  # (label, coeff, shards)
+        ("encode_EC12P4_4MiB", gf256.parity_matrix(n, m), (n, shard)),
+        ("encode_EC12P4_S699051", gf256.parity_matrix(n, m), (n, blob_s)),
+        ("recover_2x12_shards_1_7", rs_kernel.reconstruct_rows(n, n + m, present, [1, 7]),
+         (n, shard)),
+        ("lrc_rows_22x16_EC16P20L2", lrc_rows, (16, shard // 4)),
+        ("msr_repair_6x11_EC6P6MSR", msr.repair_rows(msr_t.n, msr_t.total, msr_t.d, 0, helpers),
+         (msr_t.d, beta)),
+    ]
+    agree = []
+    for label, coeff, shape in agree_cases:
+        x = rng.integers(0, 256, shape, dtype=np.uint8)
+        for leg in LEGS:  # warm: the build, the program, the device's tables
+            call(leg, coeff, x[:, :4096])
+        outs, secs = {}, {}
+        for leg in LEGS:
+            outs[leg], secs[leg] = call(leg, coeff, x)
+        equal = all(np.array_equal(outs[leg], outs["numpy"]) for leg in LEGS)
+        moved = x.nbytes  # GiB/s of stripe bytes in, as the crossover's classes count them
+        agree.append({"case": label, "R": int(coeff.shape[0]), "C": int(coeff.shape[1]),
+                      "S": int(shape[1]), "equal": equal,
+                      "ms": {leg: secs[leg] * 1e3 for leg in LEGS},
+                      "gib_s": {leg: moved / secs[leg] / 2**30 for leg in LEGS}})
+        del x, outs
+
+    # -- the crossover on this host and card, persisted --------------------
+    kw = {} if sizes is None else {"sizes": sizes}
+    table = engines.measure_crossover(device=dev, **kw)
+    with open(engines._policy_path()) as f:
+        saved = json.load(f)
+    per_size = {size: {leg: {"s": t, "gib_s": int(size) / t / 2**30}
+                       for leg, t in per.items()} for size, per in saved["timings_s"].items()}
+    engines._policy = None  # what a later process loads
+    loaded = engines._load_policy(dev)
+
+    # -- routing, no drill ----------------------------------------------------
+    auto = engines.AutoEngine(dev)
+    golden_leg = engines.get_engine("cpp")
+    small = rng.integers(0, 256, (6, table[0][0] // 6), dtype=np.uint8)
+    big = rng.integers(0, 256, (6, beyond // 6), dtype=np.uint8)
+    big_want = golden_leg.encode_parity(big, 3)
+    routes = {}
+
+    def routed(label: str, x: np.ndarray, want: np.ndarray, served: str, reps: int) -> None:
+        a0 = _build.LAUNCHES["gf_apply"]
+        got = auto.encode_parity(x, 3)
+        a1 = _build.LAUNCHES["gf_apply"]
+        disp = dict(engines.last_dispatch)
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            auto.encode_parity(x, 3)
+            times.append((time.perf_counter() - t) * 1e3)
+        routes[label] = {"bytes": int(x.nbytes), "last_dispatch": disp,
+                         "served_want": served, "equal": bool(np.array_equal(got, want)),
+                         "a_launches": a1 - a0, "ms": statistics.median(times), "ms_runs": times}
+
+    small_leg = engines.resolve_leg(table[0][1])
+    routed("stripe_64KiB", small, golden_leg.encode_parity(small, 3), small_leg, 5)
+    routed("beyond_table_64MiB", big, big_want, "cuda", 3)
+
+    # -- the drill ----------------------------------------------------------
+    caught: list[str] = []
+
+    class _Catch(logging.Handler):
+        def emit(self, record):
+            caught.append(record.getMessage())
+
+    handler = _Catch(logging.WARNING)
+    logging.getLogger("cubefs.codec").addHandler(handler)
+    os.environ["CUBEFS_CODEC_DEAD"] = "cuda"
+    try:
+        routed("drill_dead_cuda_64MiB", big, big_want, "cpp", 1)
+    finally:
+        os.environ.pop("CUBEFS_CODEC_DEAD")
+        logging.getLogger("cubefs.codec").removeHandler(handler)
+    routed("drill_cleared_64MiB", big, big_want, "cuda", 1)
+    drill_warned = [msg for msg in caught if "CUBEFS_CODEC_DEAD" in msg]
+    del big, big_want
+
+    # -- the batcher under auto: 32 threads of numpy PUTs ---------------------
+    bc = BatchCodec(enabled=True)
+    put_enc = new_encoder(CodecConfig(cm.CodeMode.EC12P4, engine="auto", device=dev))
+    put_enc.engine = AdmittedEngine(bc, dev, engine="auto")
+    put_s = put_enc.shard_size(put)
+    n_puts = ENGINE_THREADS * ENGINE_PUTS
+    payloads = rng.integers(0, 256, (n_puts, put), dtype=np.uint8)
+    stripes = [None] * n_puts
+    start = threading.Barrier(ENGINE_THREADS)
+
+    def putter(i: int) -> None:
+        start.wait(60.0)
+        pend = []
+        for j in range(ENGINE_PUTS):
+            k = i * ENGINE_PUTS + j
+            stripes[k] = put_enc.split(payloads[k].tobytes())
+            pend.append(put_enc.encode_async(stripes[k]))
+        for p in pend:
+            p.wait()
+
+    def steps_by_leg() -> dict[str, float]:
+        return {leg: metrics.codec_batch_steps.value(op="encode", engine=leg) for leg in LEGS}
+
+    s0 = steps_by_leg()
+    t = time.perf_counter()
+    with ThreadPoolExecutor(ENGINE_THREADS) as pool:
+        for f in [pool.submit(putter, i) for i in range(ENGINE_THREADS)]:
+            f.result()
+    put_wall = time.perf_counter() - t
+    s1 = steps_by_leg()
+    got = np.stack(stripes)
+    want = engines.get_engine("numpy").encode_parity(np.ascontiguousarray(got[:, :n]), m)
+    batcher = {"threads": ENGINE_THREADS, "puts": n_puts, "shard_size": put_s,
+               "steps": {leg: s1[leg] - s0[leg] for leg in LEGS if s1[leg] != s0[leg]},
+               "submissions": bc.submissions, "seconds": put_wall,
+               "gib_s": n_puts * put / put_wall / 2**30,
+               "equal": bool(np.array_equal(got[:, n:], want))}
+    del payloads, stripes, got, want
+
+    # -- the service under auto: a second codec role -----------------------
+    workdir = tempfile.mkdtemp(prefix="cubefs-smoke-auto-")
+    proc, addr = start_server(root, server_cfg, workdir)
+    service = {"server": addr, "cases": []}
+    try:
+        m0 = scrape(addr)
+        status, meta, _ = rpc_post(addr, "engine", {})
+        service["engine_reply"] = {"status": status, "meta": meta}
+        blobs = rng.integers(0, 256, (4, n, blob_s), dtype=np.uint8)
+        want_parity = engines.get_engine("numpy").encode_parity(blobs, m).tobytes()
+        rows, block = crc_rows
+        crc_body = rng.integers(0, 256, rows * block, dtype=np.uint8).tobytes()
+        want_crc = np.asarray([zlib.crc32(crc_body[i:i + block])
+                               for i in range(0, len(crc_body), block)], dtype="<u4").tobytes()
+        for label, method, args, body, want_meta, want_payload in (
+                ("encode_EC12P4_8MiB_blobs_B4", "encode",
+                 {"n": n, "m": m, "shard_size": blob_s, "batch": 4}, blobs.tobytes(),
+                 {"shape": [4, m, blob_s]}, want_parity),
+                (f"crc32_{rows}x{block}", "crc32", {"block_len": block}, crc_body,
+                 {"count": rows}, want_crc)):
+            times, ok = [], True
+            for _ in range(1 + SERVICE_REPS):
+                t = time.perf_counter()
+                status, meta, payload = rpc_post(addr, method, args, body)
+                times.append((time.perf_counter() - t) * 1e3)
+                ok = ok and (status, meta, payload) == (200, want_meta, want_payload)
+            service["cases"].append({"case": label, "equal": ok, "ms_first": times[0],
+                                     "ms": statistics.median(times[1:]), "ms_runs": times[1:],
+                                     "bytes_in": len(body)})
+        m1 = scrape(addr)
+        service["delta"] = {k: m1[k] - m0.get(k, 0.0) for k in m1
+                            if k.startswith(("cubefs_codec_batch_steps_total",
+                                             "cubefs_codec_kernel_launches_total"))
+                            and m1[k] != m0.get(k, 0.0)}
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            service["server_exit"] = proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+            service["server_exit"] = None
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    launches = dict(_build.LAUNCHES)
+    d = service["delta"]
+    checks = {
+        **{f"agree.{c['case']}": c["equal"] for c in agree},
+        "table_persisted": saved["table"] == table and saved["platform"] == "cuda"
+        and loaded == table,
+        "table_has_every_size": [row[0] for row in table] == list(
+            sizes or engines._POLICY_SIZES),
+        **{f"route.{k}": (r["equal"] and r["last_dispatch"]["served"] == r["served_want"])
+           for k, r in routes.items()},
+        "beyond_table_is_one_launch_of_a": routes["beyond_table_64MiB"]["a_launches"] == 1,
+        "drill_launches_no_a": routes["drill_dead_cuda_64MiB"]["a_launches"] == 0,
+        "drill_cleared_is_one_launch_of_a": routes["drill_cleared_64MiB"]["a_launches"] == 1,
+        "drill_requested_cuda": routes["drill_dead_cuda_64MiB"]["last_dispatch"]["requested"]
+        == "cuda",
+        "drill_warned_once": drill_warned == ["CUBEFS_CODEC_DEAD=cuda: 'cuda' served by 'cpp'"],
+        "batcher_equal": batcher["equal"] and batcher["submissions"] == n_puts,
+        "batcher_fewer_steps_than_puts": 0 < sum(batcher["steps"].values()) < n_puts,
+        "service_equal": all(c["equal"] for c in service["cases"]),
+        "service_reports_auto": service["engine_reply"] == {
+            "status": 200, "meta": {"engine": "auto", "shm": True}},
+        "service_encode_on_cuda": d.get(
+            'cubefs_codec_batch_steps_total{op="encode",engine="cuda"}', 0) > 0,
+        "service_launched_a_and_b": d.get(
+            'cubefs_codec_kernel_launches_total{kernel="gf_apply"}', 0) > 0
+        and d.get('cubefs_codec_kernel_launches_total{kernel="crc32_blocks"}', 0) > 0,
+        "server_exit_0": service["server_exit"] == 0,
+        "launched_a_only": launches["gf_apply"] > 0
+        and all(v == 0 for k, v in launches.items() if k != "gf_apply"),
+    }
+    return {"phase": "engines", "host": host, "seconds": time.perf_counter() - t_phase,
+            "agree": agree, "table": table, "loaded": loaded,
+            "device_crossover_bytes": saved["device_crossover_bytes"], "timings": per_size,
+            "routes": routes, "drill_warnings": drill_warned, "batcher": batcher,
+            "service": service, "launches": launches, "checks": checks}
 
 
 def main() -> int:
@@ -1120,7 +1396,17 @@ def main() -> int:
     if failed:
         raise AssertionError(f"service checks failed: {failed}")
 
-    # -- 11. the sharded step: 8 ranks over torch.distributed ----------------
+    # -- 11. the codec engine layer: host legs, XOR programs, auto ---------
+    # Counts from 0 (this process's): A only. The second codec role's
+    # launches come from its /metrics.
+    torch.cuda.empty_cache()
+    eng_phase = engines_phase(root, dev, card)
+    emit(eng_phase)
+    failed = [k for k, v in eng_phase["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"engines checks failed: {failed}")
+
+    # -- 12. the sharded step: 8 ranks over torch.distributed ----------------
     # Built above, in this process: the ranks find the libraries and run
     # no nvcc. Every rank runs A and B on its own block; the collectives
     # go through gloo, which stages CUDA buffers through host memory and
@@ -1143,7 +1429,7 @@ def main() -> int:
     if sh_bad:
         raise AssertionError(f"sharded step checks failed: {sh_bad}")
 
-    # -- 12. the kernels' record --------------------------------------------
+    # -- 13. the kernels' record --------------------------------------------
     gf_main, crc_main = gf_results[0], crc_results[0]
     bm_main, probe_main = (next(x for x in bm_results
                                 if (x["case"], x["extract"], x["probe"], x["grid"]) == key)
@@ -1152,6 +1438,7 @@ def main() -> int:
         {"name": "gf_apply", "route": "cuda", "source": "cubefs_tpu_torch/csrc/gf_apply.cu",
          "replaces": "cubefs_tpu/ops/pallas_gf.py:46", "shape": gf_main["case"],
          "launches": launches["gf_apply"], "service_launches": svc_launches["gf_apply"],
+         "engines_launches": eng_phase["launches"]["gf_apply"],
          "equal": gf_main["equal"],
          "max_abs_err": gf_main["max_abs_err"], "ms": gf_main["ms"],
          "device_ms": gf_main["device_ms"], "plain_ms": gf_main["plain_ms"],

@@ -8,7 +8,9 @@ carries, ``codec`` (the codec sidecar, ``codec/service.py``):
 Config keys (JSON):
   role:         codec
   listen_host / listen_port: bind address (port 0: an ephemeral port)
-  ec_engine:    cuda (the default; any other name is a KeyError)
+  ec_engine:    the codec engine (codec/engine.py): cuda (the default),
+                numpy, cpp, numpy-xor, cpp-xor or auto, which loads the
+                persisted crossover table; another name is a KeyError
   device:       the CUDA device (default: the current one), or "cpu" to
                 run the kernels' plain versions
 

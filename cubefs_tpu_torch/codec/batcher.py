@@ -33,6 +33,18 @@ caller's stream. Where the drainer's stream is the caller's, stream
 order alone does all of this: the result is ordered on the stream the
 submission was made on, as any PyTorch result is.
 
+Engines. A queue's key also holds the engine its submissions were
+admitted with (``admit(engine=...)``, the reference's names). ``cuda``
+(the default) takes tensors on its device, as above. Every other name
+takes host-resident stripes, numpy arrays or CPU tensors, which
+coalesce per geometry the same way; their step runs on the leg the
+engine module routes it to (``engine.dispatch``: ``auto`` picks the
+leg by the coalesced step's bytes, ``engine.policy_leg``, then the XOR
+door and the ``CUBEFS_CODEC_DEAD`` drill apply), and a step on the
+``cuda`` leg copies in and out through ``hostio`` once. Results come
+back as numpy, or in the submission's ``out=`` rows. The step counter
+is labelled with the leg that served.
+
 The reference also splits drained steps over a device mesh and retries
 a failed engine through a fallback chain; neither is carried over. A
 failure goes to the step's futures.
@@ -61,6 +73,7 @@ import torch
 
 from .. import device as devlib
 from ..utils import metrics
+from . import engine as engines
 from .engine import CudaEngine
 
 
@@ -134,11 +147,26 @@ class _GeometryQueue:
 
     __slots__ = ("subs", "busy", "coeff", "engine")
 
-    def __init__(self, coeff: np.ndarray | None, engine: CudaEngine):
+    def __init__(self, coeff: np.ndarray | None, engine: CudaEngine | None):
         self.subs: list[CodecFuture] = []
         self.busy = False
         self.coeff = coeff  # identical for every submission of the key
-        self.engine = engine
+        self.engine = engine  # the device leg; None for a host engine's queue
+
+
+def _is_u8(x) -> bool:
+    return x.dtype == (torch.uint8 if isinstance(x, torch.Tensor) else np.uint8)
+
+
+def _host_array(name: str, x) -> np.ndarray:
+    """Host-resident stripes as numpy (a CPU tensor as a view), or a ValueError."""
+    if isinstance(x, torch.Tensor) and x.device.type == "cpu":
+        return x.numpy()
+    if isinstance(x, np.ndarray):
+        return x
+    raise ValueError(f"{name} takes host-resident stripes (numpy or CPU tensors) for a "
+                     f"host engine, got {type(x).__name__}"
+                     + (f" on {x.device}" if isinstance(x, torch.Tensor) else ""))
 
 
 def _env_int(name: str, default: int) -> int:
@@ -184,42 +212,55 @@ class BatchCodec:
         self._n_busy = 0  # queues with a drain in flight
 
     # ---------------- public submit surface ----------------
-    def submit_encode(self, device, data: torch.Tensor, n_parity: int,
-                      out: torch.Tensor | None = None, timeout: float = 120.0) -> torch.Tensor:
-        """(B, N, S) data -> (B, M, S) parity on ``device``, coalesced
-        with every concurrent submission of the same (device, N, M, S);
-        written into ``out`` if given."""
-        return self.submit_encode_async(device, data, n_parity, out, timeout).result(timeout)
+    def submit_encode(self, device, data, n_parity: int, out=None, timeout: float = 120.0,
+                      engine: str = "cuda"):
+        """(B, N, S) data -> (B, M, S) parity, coalesced with every
+        concurrent submission of the same (engine, device, N, M, S);
+        written into ``out`` if given. ``engine`` is ``cuda`` (tensors on
+        ``device``) or a host engine's name or ``auto`` (host stripes;
+        ``device`` is the card of the ``cuda`` leg)."""
+        return self.submit_encode_async(device, data, n_parity, out, timeout,
+                                        engine).result(timeout)
 
-    def submit_apply(self, device, coeff: np.ndarray, shards: torch.Tensor,
-                     out: torch.Tensor | None = None, timeout: float = 120.0) -> torch.Tensor:
+    def submit_apply(self, device, coeff: np.ndarray, shards, out=None,
+                     timeout: float = 120.0, engine: str = "cuda"):
         """(R, C) GF matrix x (B, C, S) shards -> (B, R, S), coalesced with
-        concurrent submissions sharing the device and the identical matrix."""
-        return self.submit_apply_async(device, coeff, shards, out, timeout).result(timeout)
+        concurrent submissions sharing the engine, the device and the
+        identical matrix."""
+        return self.submit_apply_async(device, coeff, shards, out, timeout,
+                                       engine).result(timeout)
 
-    def submit_encode_async(self, device, data: torch.Tensor, n_parity: int,
-                            out: torch.Tensor | None = None, timeout: float = 120.0
-                            ) -> CodecFuture:
+    def submit_encode_async(self, device, data, n_parity: int, out=None,
+                            timeout: float = 120.0, engine: str = "cuda") -> CodecFuture:
         """submit_encode that parks and returns at once: collect with
         ``.result()``. K submissions before the first collect keep K
         stripes admitted, and they land as one step."""
-        eng = self._engine(device)
-        data = self._check("submit_encode", "(B, N, S)", eng, data, int(n_parity), out)
-        key = ("encode", eng.device, int(data.shape[1]), int(n_parity), int(data.shape[2]))
+        eng = self._engine(device, engine)
+        data, out = self._check("submit_encode", "(B, N, S)", engine, eng, data, int(n_parity),
+                                out)
+        key = ("encode", eng and eng.device, int(data.shape[1]), int(n_parity),
+               int(data.shape[2]), engine)
         return self._submit(key, None, eng, data, out, timeout)
 
-    def submit_apply_async(self, device, coeff: np.ndarray, shards: torch.Tensor,
-                           out: torch.Tensor | None = None, timeout: float = 120.0
-                           ) -> CodecFuture:
+    def submit_apply_async(self, device, coeff: np.ndarray, shards, out=None,
+                           timeout: float = 120.0, engine: str = "cuda") -> CodecFuture:
         """submit_apply that parks and returns at once."""
-        eng = self._engine(device)
+        eng = self._engine(device, engine)
         coeff = np.ascontiguousarray(coeff, dtype=np.uint8)
-        shards = self._check("submit_apply", "(B, C, S)", eng, shards, coeff.shape[0], out)
-        key = ("apply", eng.device, coeff.tobytes(), int(shards.shape[1]), int(shards.shape[2]))
+        shards, out = self._check("submit_apply", "(B, C, S)", engine, eng, shards,
+                                  coeff.shape[0], out)
+        key = ("apply", eng and eng.device, coeff.tobytes(), int(shards.shape[1]),
+               int(shards.shape[2]), engine)
         return self._submit(key, coeff, eng, shards, out, timeout)
 
     # ---------------- admission ----------------
-    def _engine(self, device) -> CudaEngine:
+    def _engine(self, device, engine: str = "cuda") -> CudaEngine | None:
+        """The device leg of ``engine`` (None for a host engine, which
+        needs no card)."""
+        if engine != "cuda" and engine != "auto":
+            if engine not in engines.HOST_ENGINES:
+                raise KeyError(f"unknown ec engine {engine!r}; have {sorted(engines.ENGINES)}")
+            return None
         dev = devlib.resolve(device)
         eng = self._engines.get(dev)
         if eng is None:
@@ -227,8 +268,21 @@ class BatchCodec:
         return eng
 
     @staticmethod
-    def _check(name: str, shape: str, eng: CudaEngine, x, rows: int,
-               out: torch.Tensor | None) -> torch.Tensor:
+    def _check(name: str, shape: str, engine: str, eng: CudaEngine | None, x, rows: int,
+               out):
+        """The submission's stripes and ``out``: tensors on the device for
+        ``cuda``, numpy for any other engine; or a ValueError."""
+        if engine != "cuda":
+            x = _host_array(name, x)
+            if x.ndim != 3:
+                raise ValueError(f"{name} takes a {shape} array, got {x.shape}")
+            if out is not None:
+                out = _host_array(name, out)
+                want = (x.shape[0], rows, x.shape[2])
+                if out.shape != want or out.dtype != np.uint8 or not out.flags.writeable:
+                    raise ValueError(f"{name}: out must be a writable {want} uint8 array, "
+                                     f"got {out.shape} {out.dtype}")
+            return x, out
         if not isinstance(x, torch.Tensor) or x.dim() != 3:
             raise ValueError(f"{name} takes a {shape} tensor, got "
                              f"{tuple(getattr(x, 'shape', ()))} {type(x).__name__}")
@@ -239,10 +293,10 @@ class BatchCodec:
                                 or out.device != eng.device):
             raise ValueError(f"{name}: out must be a {want} uint8 tensor on {eng.device}, "
                              f"got {tuple(out.shape)} {out.dtype} on {out.device}")
-        return x
+        return x, out
 
-    def _submit(self, key: tuple, coeff, eng: CudaEngine, arr: torch.Tensor,
-                out: torch.Tensor | None, timeout: float) -> CodecFuture:
+    def _submit(self, key: tuple, coeff, eng: CudaEngine | None, arr, out,
+                timeout: float) -> CodecFuture:
         if self.enabled:
             return self._enqueue(key, coeff, eng, arr, out, timeout)
         # the door closed: execute now, return resolved
@@ -253,10 +307,10 @@ class BatchCodec:
             fut.resolve(None, e)
         return fut
 
-    def _enqueue(self, key: tuple, coeff, eng: CudaEngine, arr: torch.Tensor,
-                 out: torch.Tensor | None, timeout: float) -> CodecFuture:
+    def _enqueue(self, key: tuple, coeff, eng: CudaEngine | None, arr, out,
+                 timeout: float) -> CodecFuture:
         sub = CodecFuture(self, key, arr, out)
-        if eng.device.type == "cuda":
+        if key[5] == "cuda" and eng.device.type == "cuda":
             sub.stream = torch.cuda.current_stream(eng.device)
         with self._lock:
             # block only while a drain in flight will free space: the
@@ -351,7 +405,7 @@ class BatchCodec:
         even when a step fails or a batch-mate is malformed."""
         op = key[0]
         # input bytes per stripe are fixed by the key: encode reads N*S,
-        # apply C*S
+        # apply C*S (the key is (op, device, N or matrix, M or C, S, engine))
         per_stripe = (key[3] if op == "apply" else key[2]) * key[4]
         stripe_cap = min(self.max_batch, max(1, self.max_step_bytes // max(1, per_stripe)))
         steps = 0
@@ -361,7 +415,7 @@ class BatchCodec:
             for sub in batch:
                 # the key fixes the shape; the dtype is the one thing left
                 # to reject, alone (a concatenation would upcast the step)
-                if sub.arr.dtype != torch.uint8:
+                if not _is_u8(sub.arr):
                     metrics.codec_batch_errors.inc(op=op, kind="dtype")
                     sub.resolve(None, CodecAdmissionError(
                         f"{op}: stripe dtype must be uint8, got {sub.arr.dtype}"))
@@ -387,18 +441,18 @@ class BatchCodec:
         metrics.codec_batch_wait.observe_many([now - s.enq_t for s in step], op=key[0])
         try:
             others = self._join_streams(key, step)
-            if len(step) == 1:  # the caller's own tensors, no copy
+            if len(step) == 1:  # the caller's own stripes, no copy
                 sub = step[0]
                 out = self._engine_call(key, q.engine, q.coeff, sub.arr, sub.out)
                 results = [out]
             else:
-                out = self._engine_call(key, q.engine, q.coeff,
-                                        torch.cat([s.arr for s in step]), None)
+                cat = (torch.cat if key[5] == "cuda" else np.concatenate)
+                out = self._engine_call(key, q.engine, q.coeff, cat([s.arr for s in step]), None)
                 results, off = [], 0
                 for sub in step:
                     end = off + sub.stripes
                     v = out[off:end]
-                    results.append(v if sub.out is None else sub.out.copy_(v))
+                    results.append(v if sub.out is None else _copy_into(sub.out, v))
                     off = end
             if others:
                 self._hand_back(key, step, others, out)
@@ -415,7 +469,7 @@ class BatchCodec:
     def _join_streams(key: tuple, step: list[CodecFuture]) -> list[CodecFuture]:
         """Order the step after each caller's stream; returns the
         submissions made on a stream other than the drainer's."""
-        if key[1].type != "cuda":
+        if key[5] != "cuda" or key[1].type != "cuda":
             return []
         cur = torch.cuda.current_stream(key[1])
         others = [s for s in step if s.stream != cur]
@@ -440,52 +494,106 @@ class BatchCodec:
             sub.finished = done
 
     # ---------------- device step ----------------
-    def _engine_call(self, key: tuple, eng: CudaEngine, coeff: np.ndarray | None,
-                     arr: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
-        if key[0] == "encode":
-            y = eng.encode_parity(arr, key[3], out=out)
+    def _engine_call(self, key: tuple, eng: CudaEngine | None, coeff: np.ndarray | None,
+                     arr, out):
+        """One step: ``cuda`` on the device's tensors, any other engine
+        routed on host stripes (``auto`` by the step's bytes). Counted
+        under the leg that served."""
+        op, engine = key[0], key[5]
+        if engine == "cuda":
+            if op == "encode":
+                y = eng.encode_parity(arr, key[3], out=out)
+            else:
+                y = eng.matrix_apply(coeff, arr, out=out)
+            served = eng.name
         else:
-            y = eng.matrix_apply(coeff, arr, out=out)
-        metrics.codec_batch_steps.inc(op=key[0], engine=eng.name)
+            dev = None if eng is None else eng.device
+            name = engines.policy_leg(int(arr.nbytes), dev) if engine == "auto" else engine
+            args = (arr, key[3]) if op == "encode" else (coeff, arr)
+            y, served = engines.dispatch(name, "encode_parity" if op == "encode"
+                                         else "matrix_apply", dev, *args)
+            if out is not None:
+                y = _copy_into(out, y)
+        metrics.codec_batch_steps.inc(op=op, engine=served)
         return y
 
 
+def _copy_into(dst, src):
+    """``src`` copied into the caller's rows ``dst``; returns ``dst``."""
+    if isinstance(dst, torch.Tensor):
+        return dst.copy_(src)
+    np.copyto(dst, src)
+    return dst
+
+
+def _view3(x):
+    """(..., C, S) as (B, C, S) without a copy (raises where it would need one)."""
+    if isinstance(x, np.ndarray):
+        if not x.flags.writeable:
+            raise ValueError("out is read-only")
+        return torch.from_numpy(x).view(-1, *x.shape[-2:]).numpy()
+    return x.view(-1, *x.shape[-2:])
+
+
 class AdmittedEngine:
-    """Engine-shaped facade over the admission layer for one device, the
-    way every encoder reaches device math. Takes the same (..., C, S)
-    shapes as ``CudaEngine``, flattening leading dimensions into the
-    batch; an ``out`` given for such a shape must be viewable so."""
+    """Engine-shaped facade over the admission layer, the way every
+    encoder reaches shard math. Takes the same (..., C, S) shapes as an
+    engine, flattening leading dimensions into the batch; an ``out``
+    given for such a shape must be viewable so. With ``engine="cuda"``
+    (the default) stripes are tensors on ``device``; with any other
+    engine they are host-resident, numpy in and numpy out (a CPU tensor
+    in, a CPU tensor out), and ``device`` is the card of ``auto``'s
+    ``cuda`` leg (None for a host engine)."""
 
-    def __init__(self, batcher: BatchCodec, device=None):
+    def __init__(self, batcher: BatchCodec, device=None, engine: str = "cuda"):
+        if engine not in engines.ENGINES:
+            raise KeyError(f"unknown ec engine {engine!r}; have {sorted(engines.ENGINES)}")
         self.batcher = batcher
-        self.device = devlib.resolve(device)
+        self.engine = engine
+        self.device = None if engine in engines.HOST_ENGINES else devlib.resolve(device)
 
-    @staticmethod
-    def _flat(x: torch.Tensor, out: torch.Tensor | None):
-        if not isinstance(x, torch.Tensor) or x.dim() < 2:
-            raise ValueError(f"shards must be a (..., C, S) tensor, got "
+    @property
+    def host(self) -> bool:
+        """Whether the stripes are host-resident (every engine but ``cuda``)."""
+        return self.engine != "cuda"
+
+    def _flat(self, x, out):
+        ok = (isinstance(x, (torch.Tensor, np.ndarray)) if self.host
+              else isinstance(x, torch.Tensor))
+        if not ok or x.ndim < 2:
+            kind = "(..., C, S) array" if self.host else "(..., C, S) tensor"
+            raise ValueError(f"shards must be a {kind}, got "
                              f"{tuple(getattr(x, 'shape', ()))} {type(x).__name__}")
         x3 = x.reshape(-1, *x.shape[-2:])
-        return x3, None if out is None else out.view(-1, *out.shape[-2:])
+        return x3, None if out is None else _view3(out)
 
-    def encode_parity(self, data: torch.Tensor, n_parity: int,
-                      out: torch.Tensor | None = None) -> torch.Tensor:
+    def _result(self, x, y, out):
+        if out is not None:
+            return out
+        y = y.reshape(*x.shape[:-2], *y.shape[-2:])
+        return torch.from_numpy(y) if self.host and isinstance(x, torch.Tensor) else y
+
+    def encode_parity(self, data, n_parity: int, out=None):
         x, o = self._flat(data, out)
-        y = self.batcher.submit_encode(self.device, x, n_parity, out=o)
-        return y.view(*data.shape[:-2], *y.shape[-2:]) if out is None else out
+        y = self.batcher.submit_encode(self.device, x, n_parity, out=o, engine=self.engine)
+        return self._result(data, y, out)
 
-    def matrix_apply(self, coeff: np.ndarray, shards: torch.Tensor,
-                     out: torch.Tensor | None = None) -> torch.Tensor:
+    def matrix_apply(self, coeff: np.ndarray, shards, out=None):
         x, o = self._flat(shards, out)
-        y = self.batcher.submit_apply(self.device, coeff, x, out=o)
-        return y.view(*shards.shape[:-2], *y.shape[-2:]) if out is None else out
+        y = self.batcher.submit_apply(self.device, coeff, x, out=o, engine=self.engine)
+        return self._result(shards, y, out)
 
 
 DEFAULT = BatchCodec()
 
 
-def admit(device=None, batcher: BatchCodec | None = None) -> AdmittedEngine:
-    """The admission surface for ``device`` (None: the current CUDA
-    device; ``"cpu"``: the plain path): an engine-shaped handle whose
-    calls coalesce with every other admitted caller of the process."""
-    return AdmittedEngine(batcher or DEFAULT, device)
+def admit(device=None, batcher: BatchCodec | None = None, engine: str = "cuda"
+          ) -> AdmittedEngine:
+    """The admission surface: an engine-shaped handle whose calls coalesce
+    with every other admitted caller of the process. ``engine`` takes the
+    reference's names (``cuda``, ``numpy``, ``cpp``, ``numpy-xor``,
+    ``cpp-xor``, ``auto``); ``device`` is the card of ``cuda`` (None: the
+    current CUDA device, ``"cpu"``: the plain path) and of ``auto``'s
+    ``cuda`` leg. ``auto`` picks the leg for each drained step by its
+    coalesced size."""
+    return AdmittedEngine(batcher or DEFAULT, device, engine)

@@ -9,32 +9,41 @@ takes the reference's arguments, makes its checks with its error codes
 and messages, and answers with its meta and bytes.
 
 Endpoints:
-  engine          -> {engine: "cuda", shm: true}
+  engine          -> {engine: <name>, shm: true}
   encode          {n, m, shard_size, batch} + data shards -> parity
   reconstruct     {n, total, present, wanted, shard_size, batch} + survivors
   crc32           {block_len} + blocks -> <u4 CRCs
   verify          {n, m, shard_size, batch} + full stripes -> {ok: [...]}
   encode_shm, reconstruct_shm: the same math on a /dev/shm file
 
-On the card, the shard math is kernel A, through the admission layer
-(``admit``: stripes of concurrent callers with one geometry coalesce into
-one launch), and the CRCs are kernel B. ``device="cpu"`` runs their plain
-versions. Nothing falls back from one to the other: a failing kernel
-answers 500 with its error.
+The engine is any of the codec's (``engine.py``): with ``cuda`` (the
+default) the request's bytes are copied to the card (``hostio``) and the
+shard math is kernel A; with a host engine or ``auto`` they stay in host
+memory and the engine, or the leg ``auto`` routes each coalesced step
+to, does the math (``auto``'s ``cuda`` leg copies through ``hostio``
+itself). ``auto`` loads the persisted crossover table when the service
+starts. Either way the math goes through the admission layer (``admit``:
+stripes of concurrent callers with one geometry coalesce into one step).
+CRCs are kernel B, except under ``numpy``, where they are zlib's, as in
+the reference. ``device="cpu"`` runs the kernels' plain versions. No
+error moves a call to another leg: a failing kernel answers 500 with its
+error.
 """
 
 from __future__ import annotations
 
 import os
+import zlib
 
 import numpy as np
 import torch
 
+from .. import device as devlib
 from ..ops import crc32_kernel, rs_kernel
 from ..utils import metrics, rpc
+from . import engine as engines
 from . import hostio
 from .batcher import admit
-from .engine import get_engine
 
 SHM_PREFIX = "/dev/shm/cubefs-codec-"
 
@@ -84,9 +93,32 @@ def _reconstruct_args(args, unsorted: str) -> tuple[int, int, list[int], list[in
 
 class CodecService:
     def __init__(self, engine: str = "cuda", device=None):
-        self.engine = get_engine(engine, device)  # raises without a card
-        self.device = self.engine.device
-        self.codec = admit(self.device)
+        self.device = devlib.resolve(device)  # raises without a card
+        self.engine = engines.get_engine(engine, self.device)
+        self.host = self.engine.name != "cuda"  # the request's stripes stay on the host
+        self.codec = admit(self.device, engine=self.engine.name)
+        if self.engine.name == "auto":
+            engines._load_policy(self.device)
+
+    def _stripes(self, buf, shape: tuple):
+        """The request's bytes as (B, rows, S) stripes: copied to the
+        device for ``cuda``, a read-only numpy view for the others."""
+        if self.host:
+            return np.frombuffer(buf, dtype=np.uint8).reshape(shape)
+        return hostio.to_device(buf, shape, self.device)
+
+    @staticmethod
+    def _bytes(y) -> bytes:
+        if isinstance(y, torch.Tensor):
+            return hostio.to_host(y).numpy().tobytes()
+        return np.ascontiguousarray(y).tobytes()
+
+    @staticmethod
+    def _write(y, dst: np.ndarray) -> None:
+        if isinstance(y, torch.Tensor):
+            hostio.to_host(y, out=dst)
+        else:
+            dst[:] = y.reshape(-1)
 
     # ---------------- RPC surface ----------------
     def rpc_engine(self, args, body):
@@ -123,8 +155,8 @@ class CodecService:
         b = _pos_int(args, "batch", default=1)
         in_bytes, out_bytes = b * n * s, b * m * s
         mm = self._shm_map(args, in_bytes + out_bytes)
-        data = hostio.to_device(mm[:in_bytes], (b, n, s), self.device)
-        hostio.to_host(self.codec.encode_parity(data, m), out=mm[in_bytes:in_bytes + out_bytes])
+        data = self._stripes(mm[:in_bytes], (b, n, s))
+        self._write(self.codec.encode_parity(data, m), mm[in_bytes:in_bytes + out_bytes])
         mm.flush()
         metrics.codec_bytes.inc(in_bytes, op="encode_shm", engine=self.engine.name)
         return {"shape": [b, m, s], "offset": in_bytes}
@@ -137,9 +169,9 @@ class CodecService:
         b = _pos_int(args, "batch", default=1)
         in_bytes, out_bytes = b * n * s, b * len(wanted) * s
         mm = self._shm_map(args, in_bytes + out_bytes)
-        surv = hostio.to_device(mm[:in_bytes], (b, n, s), self.device)
-        hostio.to_host(self._reconstruct(n, total, present, wanted, surv),
-                       out=mm[in_bytes:in_bytes + out_bytes])
+        surv = self._stripes(mm[:in_bytes], (b, n, s))
+        self._write(self._reconstruct(n, total, present, wanted, surv),
+                    mm[in_bytes:in_bytes + out_bytes])
         mm.flush()
         metrics.codec_bytes.inc(in_bytes, op="reconstruct_shm", engine=self.engine.name)
         return {"shape": [b, len(wanted), s], "offset": in_bytes}
@@ -151,9 +183,9 @@ class CodecService:
         expect = b * n * s
         if len(body) != expect:
             raise rpc.RpcError(400, f"body {len(body)}B != batch*n*shard {expect}B")
-        parity = self.codec.encode_parity(hostio.to_device(body, (b, n, s), self.device), m)
+        parity = self.codec.encode_parity(self._stripes(body, (b, n, s)), m)
         metrics.codec_bytes.inc(len(body), op="encode", engine=self.engine.name)
-        return {"shape": [b, m, s]}, hostio.to_host(parity).numpy().tobytes()
+        return {"shape": [b, m, s]}, self._bytes(parity)
 
     def rpc_reconstruct(self, args, body):
         n, total, present, wanted = _reconstruct_args(
@@ -162,18 +194,22 @@ class CodecService:
         b = _pos_int(args, "batch", default=1)
         if len(body) != b * n * s:
             raise rpc.RpcError(400, "body size mismatch")
-        surv = hostio.to_device(body, (b, n, s), self.device)
+        surv = self._stripes(body, (b, n, s))
         rec = self._reconstruct(n, total, present, wanted, surv)
         metrics.codec_bytes.inc(len(body), op="reconstruct", engine=self.engine.name)
-        return {"shape": [b, len(wanted), s]}, hostio.to_host(rec).numpy().tobytes()
+        return {"shape": [b, len(wanted), s]}, self._bytes(rec)
 
     def rpc_crc32(self, args, body):
         block = int(args["block_len"])
         if block <= 0 or len(body) % block:
             raise rpc.RpcError(400, f"body not a multiple of block {block}")
-        blocks = hostio.to_device(body, (len(body) // block, block), self.device)
-        # int64 holding the unsigned CRC: exact as <u4, 2^31 and above too
-        crcs = hostio.to_host(crc32_kernel.crc32_blocks(blocks)).numpy().astype("<u4")
+        if self.engine.name == "numpy":  # the host golden engine: host CRCs too
+            crcs = np.asarray([zlib.crc32(body[i:i + block]) for i in range(0, len(body), block)],
+                              dtype="<u4")
+        else:
+            blocks = hostio.to_device(body, (len(body) // block, block), self.device)
+            # int64 holding the unsigned CRC: exact as <u4, 2^31 and above too
+            crcs = hostio.to_host(crc32_kernel.crc32_blocks(blocks)).numpy().astype("<u4")
         metrics.codec_bytes.inc(len(body), op="crc32", engine=self.engine.name)
         return {"count": len(crcs)}, crcs.tobytes()
 
@@ -183,8 +219,10 @@ class CodecService:
         b = _pos_int(args, "batch", default=1)
         if len(body) != b * (n + m) * s:
             raise rpc.RpcError(400, "body size mismatch")
-        stripes = hostio.to_device(body, (b, n + m, s), self.device)
+        stripes = self._stripes(body, (b, n + m, s))
         parity = self.codec.encode_parity(stripes[:, :n], m)
-        ok = (parity == stripes[:, n:]).flatten(1).all(1)  # compared on the device
         metrics.codec_bytes.inc(len(body), op="verify", engine=self.engine.name)
+        if self.host:
+            return {"ok": [bool(x) for x in (parity == stripes[:, n:]).reshape(b, -1).all(1)]}
+        ok = (parity == stripes[:, n:]).flatten(1).all(1)  # compared on the device
         return {"ok": hostio.to_host(ok).tolist()}

@@ -17,6 +17,7 @@ coefficient as eight AND-XORs of those words with the input's bit masks
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -63,7 +64,7 @@ def gf_apply(coeff: np.ndarray, shards: torch.Tensor, out: torch.Tensor | None =
     if r * c * 32 > MAX_TABLE_BYTES:
         raise ValueError(f"{r}x{c} coefficients need {r * c * 32} bytes of tables, "
                          f"over {MAX_TABLE_BYTES}")
-    x = shards.reshape(-1, c, s)
+    x = shards.reshape(math.prod(lead), c, s)  # not -1: S may be 0
     if x.stride(-1) != 1 or x.stride(-2) != s:
         x = x.contiguous()  # the kernel wants each stripe's rows back to back
     b = x.shape[0]

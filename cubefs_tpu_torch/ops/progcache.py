@@ -1,7 +1,8 @@
 """Shared capped LRU for the codec's per-matrix host artifacts.
 
 The port's own copy of ``cubefs_tpu/ops/progcache.py``. ``ops/msr.py``
-caches its product-matrix rows here: a long-lived repair worker that
+caches its product-matrix rows here and ``ops/xorprog.py`` its compiled
+XOR programs: a long-lived repair worker that
 touches many geometries (every distinct failed slot and helper set is a
 distinct matrix) would otherwise grow an unbounded cache forever. One
 process-wide LRU, shared by every family and keyed ``(family, key)``,
@@ -65,9 +66,24 @@ class ProgramCache:
                 metrics.codec_program_cache.inc(family=old_family, event="evict")
             metrics.codec_program_cache_entries.set(len(self._entries))
 
+    def get_or_build(self, family: str, key, build):
+        """The cached value of ``(family, key)``, made by ``build()`` and
+        cached on a miss."""
+        hit, value = self.get(family, key)
+        if hit:
+            return value
+        value = build()
+        self.put(family, key, value)
+        return value
+
     def __len__(self) -> int:
         with self._lock:
             return len(self._entries)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            metrics.codec_program_cache_entries.set(0)
 
 
 # The one instance every family shares, so the cap means what it says.

@@ -21,6 +21,8 @@ composes a local parity's row with its stripe members' rows, and the
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -65,7 +67,7 @@ def gf_apply_bits(w_bits: torch.Tensor, shards: torch.Tensor) -> torch.Tensor:
     *lead, c, s = shards.shape
     r = w_bits.shape[0] // 8
     w = w_bits.to(device=shards.device, dtype=torch.float32)
-    flat = shards.reshape(-1, c, s)
+    flat = shards.reshape(math.prod(lead), c, s)  # not -1: S may be 0
     out = torch.empty((flat.shape[0], r, s), dtype=torch.uint8, device=shards.device)
     for i in range(flat.shape[0]):
         for j in range(0, s, _PLAIN_COLS):

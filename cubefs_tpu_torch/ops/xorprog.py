@@ -1,0 +1,338 @@
+"""Compiled, scheduled XOR programs: the host codec legs ``numpy-xor``
+and ``cpp-xor``.
+
+The port's own copy of ``cubefs_tpu/ops/xorprog.py``; a matrix compiles
+to the same schedule, op stream and ``schedule_digest`` as there. Each
+coding matrix is lowered once into straight-line XOR over bit-planes and
+the schedule is replayed word-wide:
+
+1. Bit-matrix expansion: a GF(2^8) multiply by a fixed coefficient is
+   GF(2)-linear, so the (R, C) coding matrix becomes its (8R, 8C) bit
+   form (``ops/bitlin.py``, LSB-first: bit row ``8i+b`` is bit ``b`` of
+   output byte row ``i``). Every output bit-plane is then the XOR of a
+   subset of input bit-planes.
+2. Common subexpressions across parity rows (Paar's greedy pair
+   elimination): the column pair shared by the most output rows becomes
+   a temp plane, computed once and substituted everywhere, until no pair
+   is shared by ``_MIN_COOC`` rows or ``_CSE_CAP`` temps exist.
+3. Cache-blocked execution: shards go through in blocks sized so the
+   whole plane workspace (input, temp and output planes) stays in L2.
+   Per block, each shard is split into its 8 bit-planes with a SWAR 8x8
+   bit transpose (Hacker's Delight 7-3, vectorised over uint64 words),
+   the ops run once, and the output planes are transposed back to
+   bytes. GF(2^8) math is byte-local, so blocks (and the zero-padded
+   tail) are independent.
+
+Programs live in the shared capped program cache (``ops/progcache.py``)
+keyed ``(coeff_bytes, shape)``. ``XorProgram.apply`` is the numpy leg;
+``opstream()`` is what the native executor (``csrc/host/gfcpu.cc``
+``xor_apply``) replays.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import heapq
+
+import numpy as np
+
+from . import bitlin, progcache
+
+# SWAR 8x8 bit transpose constants (Hacker's Delight figure 7-3).
+_M1 = np.uint64(0x00AA00AA00AA00AA)
+_M2 = np.uint64(0x0000CCCC0000CCCC)
+_M3 = np.uint64(0x00000000F0F0F0F0)
+_S7, _S14, _S28 = np.uint64(7), np.uint64(14), np.uint64(28)
+
+# Plane-workspace budget: input, temp and output planes of one block
+# stay L2-resident. Block bytes per shard adapt to the program's slot
+# count inside [_MIN_BLOCK, _MAX_BLOCK]. The reference's values: the
+# block size is part of the program (and of its stats), so they match.
+_WS_BUDGET = 10 << 17  # 1.25 MiB of planes
+_MIN_BLOCK = 4 << 10
+_MAX_BLOCK = 128 << 10
+
+# Greedy-CSE budgets, the reference's. The temp cap bounds compile time
+# and workspace growth for the big product-matrix geometries (an
+# EC6P6MSR decode matrix is 288x288 bits). _MIN_COOC = 3: under word-wide
+# execution a pair shared by only two rows is a wash (the temp's plane
+# write cancels the one read it saves).
+_CSE_CAP = 256
+_MIN_COOC = 3
+
+
+def _transpose8(w: np.ndarray, o: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """8x8 bit transpose of EACH uint64 word of `w`, vectorized over the
+    word axis; `o` and `t` are same-shape scratch, the result lands in
+    (and is) `t`. An involution — one routine serves both the
+    bytes->planes split and the planes->bytes join."""
+    np.right_shift(w, _S7, out=o)
+    np.bitwise_xor(w, o, out=o)
+    np.bitwise_and(o, _M1, out=o)
+    np.left_shift(o, _S7, out=t)
+    np.bitwise_xor(o, t, out=t)
+    np.bitwise_xor(w, t, out=t)
+
+    np.right_shift(t, _S14, out=o)
+    np.bitwise_xor(t, o, out=o)
+    np.bitwise_and(o, _M2, out=o)
+    tmp = np.left_shift(o, _S14)
+    np.bitwise_xor(o, tmp, out=tmp)
+    np.bitwise_xor(t, tmp, out=t)
+
+    np.right_shift(t, _S28, out=o)
+    np.bitwise_xor(t, o, out=o)
+    np.bitwise_and(o, _M3, out=o)
+    np.left_shift(o, _S28, out=tmp)
+    np.bitwise_xor(o, tmp, out=tmp)
+    np.bitwise_xor(t, tmp, out=t)
+    return t
+
+
+def _greedy_cse(rows_of: dict[int, int], next_col: int,
+                cap: int = _CSE_CAP) -> tuple[list, dict, int]:
+    """Paar's greedy pair elimination over column bitsets.
+
+    `rows_of[col]` is a python-int bitmask of the output bit-rows still
+    carrying `col` as a direct operand. Each round materializes the
+    pair (a, b) shared by the most rows (at least _MIN_COOC of them) as
+    a new temp column and strips the pair from those rows. A lazy
+    max-heap keeps this near-linear: stale entries (masks only ever
+    shrink) are re-scored on pop."""
+    active = {c: m for c, m in rows_of.items() if m}
+
+    def count(a: int, b: int) -> int:
+        return (active[a] & active[b]).bit_count()
+
+    heap: list[tuple[int, int, int]] = []
+    cols = sorted(active)
+    for i, a in enumerate(cols):
+        for b in cols[i + 1:]:
+            n = count(a, b)
+            if n >= _MIN_COOC:
+                heap.append((-n, a, b))
+    heapq.heapify(heap)
+
+    temps: list[tuple[int, int, int]] = []
+    while heap and len(temps) < cap:
+        negn, a, b = heapq.heappop(heap)
+        if a not in active or b not in active:
+            continue
+        n = count(a, b)
+        if n != -negn:
+            if n >= _MIN_COOC:
+                heapq.heappush(heap, (-n, a, b))
+            continue
+        if n < _MIN_COOC:
+            continue
+        t = next_col
+        next_col += 1
+        both = active[a] & active[b]
+        active[a] &= ~both
+        active[b] &= ~both
+        for gone in (a, b):
+            if not active[gone]:
+                del active[gone]
+        active[t] = both
+        temps.append((t, a, b))
+        for x in list(active):
+            if x == t:
+                continue
+            n = count(t, x)
+            if n >= _MIN_COOC:
+                heapq.heappush(heap, (-n, t, x))
+    return temps, active, next_col
+
+
+class XorProgram:
+    """One compiled schedule for one (R, C) GF(2^8) matrix.
+
+    Slot layout (shared with the native executor in csrc/host/gfcpu.cc;
+    outputs are always the last 8R slots):
+
+      [0, 8C)              input planes   (shard j bit k -> slot 8j+k)
+      [8C, 8C+T)           temp planes    (CSE intermediates)
+      [8C+T, 8C+T+8R)      output planes  (row i bit b -> base+8i+b)
+    """
+
+    def __init__(self, coeff: np.ndarray):
+        coeff = np.ascontiguousarray(np.asarray(coeff, dtype=np.uint8))
+        if coeff.ndim != 2:
+            raise ValueError(f"coeff must be 2-D, got {coeff.shape}")
+        self.rows, self.cols = coeff.shape
+        bits = bitlin.gf_matrix_to_bits(coeff)
+        n_in, n_out = 8 * self.cols, 8 * self.rows
+        self.naive_xor_inputs = int(bits.sum())
+
+        # column -> bitmask of output bit-rows using it
+        rows_of: dict[int, int] = {}
+        for c in range(n_in):
+            mask = 0
+            for r in np.nonzero(bits[:, c])[0]:
+                mask |= 1 << int(r)
+            if mask:
+                rows_of[c] = mask
+
+        temps, final, _ = _greedy_cse(rows_of, n_in)
+
+        # direct operands per output row after substitution
+        row_srcs: list[list[int]] = [[] for _ in range(n_out)]
+        for c, mask in final.items():
+            m = mask
+            while m:
+                r = (m & -m).bit_length() - 1
+                row_srcs[r].append(c)
+                m &= m - 1
+
+        # dead-temp pruning: a temp whose rows were all later subsumed
+        # by bigger temps may end up unreferenced (directly or via live
+        # temps); drop it so the workspace and the op stream stay tight.
+        live: set[int] = {c for srcs in row_srcs for c in srcs if c >= n_in}
+        for t, a, b in reversed(temps):
+            if t in live:
+                for src in (a, b):
+                    if src >= n_in:
+                        live.add(src)
+        kept = [(t, a, b) for t, a, b in temps if t in live]
+        self.n_temps = len(kept)
+        slot = {t: n_in + i for i, (t, _, _) in enumerate(kept)}
+
+        def to_slot(c: int) -> int:
+            return c if c < n_in else slot[c]
+
+        self.n_in, self.n_out = n_in, n_out
+        self.nslots = n_in + self.n_temps + n_out
+        out_base = n_in + self.n_temps
+        # temp ops in creation order (each operand precedes its use)
+        self.temp_ops = tuple((slot[t], to_slot(a), to_slot(b))
+                              for t, a, b in kept)
+        # output ops: operands sorted ascending so each block's planes
+        # stream in storage order (cache-friendly), index arrays
+        # precomputed for the fused bitwise_xor.reduce gather
+        self.out_ops = tuple(
+            (out_base + r, np.array(sorted(to_slot(c) for c in srcs),
+                                    dtype=np.intp))
+            for r, srcs in enumerate(row_srcs))
+        self.sched_xor_inputs = (2 * len(self.temp_ops)
+                                 + sum(len(ix) for _, ix in self.out_ops))
+
+        # adaptive block: the whole slot workspace (nslots planes of
+        # block/8 bytes) must fit the plane budget
+        blk = (_WS_BUDGET * 8 // max(1, self.nslots)) & ~63
+        self.block_bytes = max(_MIN_BLOCK, min(_MAX_BLOCK, blk))
+
+        h = hashlib.sha256()
+        h.update(f"xorprog-v1:{self.rows}x{self.cols}:".encode())
+        for op in self.temp_ops:
+            h.update(("t%d=%d^%d" % op).encode())
+        for dst, idx in self.out_ops:
+            h.update(("o%d=" % dst).encode())
+            h.update(np.asarray(idx, dtype=np.int64).tobytes())
+        self.schedule_digest = h.hexdigest()
+        self._c_opstream: np.ndarray | None = None
+
+    # ---- stats / native export ----
+
+    def stats(self) -> dict:
+        return {
+            "shape": [self.rows, self.cols],
+            "naive_xor_inputs": self.naive_xor_inputs,
+            "scheduled_xor_inputs": self.sched_xor_inputs,
+            "temps": self.n_temps,
+            "block_bytes": self.block_bytes,
+            "digest": self.schedule_digest,
+        }
+
+    def opstream(self) -> np.ndarray:
+        """The schedule as the int32 stream the native executor
+        (gfcpu.cc xor_apply) replays: repeated [dst, nsrc, src...],
+        temps first, then outputs (nsrc=0 zeroes the plane)."""
+        if self._c_opstream is None:
+            words: list[int] = []
+            for dst, a, b in self.temp_ops:
+                words += [dst, 2, a, b]
+            for dst, idx in self.out_ops:
+                words += [dst, len(idx), *map(int, idx)]
+            self._c_opstream = np.array(words, dtype=np.int32)
+        return self._c_opstream
+
+    # ---- execution (numpy leg) ----
+
+    def apply(self, shards: np.ndarray) -> np.ndarray:
+        """(..., C, S) uint8 -> (..., R, S), bit-identical to
+        gf256.gf_matmul(coeff, shards) per stripe."""
+        shards = np.ascontiguousarray(np.asarray(shards, dtype=np.uint8))
+        if shards.ndim < 2 or shards.shape[-2] != self.cols:
+            raise ValueError(
+                f"program is {self.rows}x{self.cols}, shards {shards.shape}")
+        lead, s = shards.shape[:-2], shards.shape[-1]
+        flat = shards.reshape(int(np.prod(lead)), self.cols, s)  # not -1: S may be 0
+        nb = flat.shape[0]
+        # GF math is byte-local: the SWAR transpose wants 64-byte
+        # multiples, so pad the tail with zeros and slice it back off
+        s2 = (s + 63) & ~63
+        if s2 != s:
+            padded = np.zeros((nb, self.cols, s2), dtype=np.uint8)
+            padded[:, :, :s] = flat
+            flat = padded
+        out = np.empty((nb, self.rows, s2), dtype=np.uint8)
+
+        fb = self.block_bytes
+        ws = np.empty((self.nslots, fb // 8), dtype=np.uint8)
+        ws64 = ws.view(np.uint64)
+        o_scr = np.empty(fb // 8, dtype=np.uint64)
+        t_scr = np.empty(fb // 8, dtype=np.uint64)
+        out_base = self.n_in + self.n_temps
+
+        for bi in range(nb):
+            for off in range(0, s2, fb):
+                cur = min(fb, s2 - off)
+                nbytes = cur // 8      # bytes per plane this block
+                nwords = cur // 8      # uint64 words per shard block
+                pwords = cur // 64     # uint64 words per plane
+                o, t = o_scr[:nwords], t_scr[:nwords]
+                # split: each input shard block -> 8 bit-planes
+                for j in range(self.cols):
+                    w = flat[bi, j, off:off + cur].view(np.uint64)
+                    r = _transpose8(w, o, t)
+                    ws[8 * j:8 * j + 8, :nbytes] = (
+                        r.view(np.uint8).reshape(-1, 8).T)
+                # replay the schedule word-wide
+                wv = ws64[:, :pwords]
+                for dst, a, b in self.temp_ops:
+                    np.bitwise_xor(wv[a], wv[b], out=wv[dst])
+                for dst, idx in self.out_ops:
+                    n = len(idx)
+                    if n == 0:
+                        wv[dst] = 0
+                    elif n == 1:
+                        np.copyto(wv[dst], wv[idx[0]])
+                    elif n == 2:
+                        np.bitwise_xor(wv[idx[0]], wv[idx[1]], out=wv[dst])
+                    else:
+                        np.bitwise_xor.reduce(wv[idx], axis=0, out=wv[dst])
+                # join: output planes -> bytes, straight into `out`
+                for i in range(self.rows):
+                    planes = ws[out_base + 8 * i:out_base + 8 * i + 8,
+                                :nbytes]
+                    inter = np.ascontiguousarray(planes.T).reshape(-1)
+                    dst = out[bi, i, off:off + cur].view(np.uint64)
+                    _transpose8(inter.view(np.uint64), o, dst)
+        if s2 != s:
+            return np.ascontiguousarray(out[:, :, :s]).reshape(
+                *lead, self.rows, s)
+        return out.reshape(*lead, self.rows, s)
+
+
+def program_for(coeff: np.ndarray) -> XorProgram:
+    """The cached compiled program for a coefficient matrix, keyed
+    (coeff_bytes, shape) in the shared capped program cache."""
+    coeff = np.ascontiguousarray(np.asarray(coeff, dtype=np.uint8))
+    key = (coeff.tobytes(), coeff.shape)
+    return progcache.SHARED.get_or_build(
+        "xorprog", key, lambda: XorProgram(coeff))
+
+
+def apply(coeff: np.ndarray, shards: np.ndarray) -> np.ndarray:
+    """Compile-once-and-run: (R, C) GF matrix x (..., C, S) -> (..., R, S)."""
+    return program_for(coeff).apply(shards)

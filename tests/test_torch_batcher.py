@@ -4,11 +4,15 @@ per-submission error fan-back, backpressure, the CUBEFS_CODEC_BATCH
 door, step-size bounds, the AdmittedEngine facade, the encoders'
 ``encode_async``, zero-copy single-submission steps and, on the card,
 the stream rule. The counterparts of ``tests/test_codec_batch.py``
-(without its dp and metrics cases).
+(without its dp and metrics cases). Then the host engines and ``auto``:
+numpy submissions coalescing per geometry, steps counted under the leg
+that served, the XOR door and the drill, and the encoders on host
+stripes held against the reference's encoder of the same engine.
 
-Every test builds a private BatchCodec, so nothing leaks into the
-process-wide DEFAULT. The file imports no jax: its ``cuda`` tests run on
-a machine with only the port's dependencies:
+Every test of the batcher builds a private BatchCodec, so nothing leaks
+into the process-wide DEFAULT. The file imports no jax at module level
+(the reference's encoder is imported by the ``ref_codec`` fixture): its
+``cuda`` tests run on a machine with only the port's dependencies:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_batcher.py
 
@@ -400,6 +404,198 @@ def test_encode_async_raises_verify_error_at_wait():
 
     with pytest.raises(VerifyError):
         enc.encode_async(st).wait()
+
+
+# ---------------- host engines and auto ----------------
+
+@pytest.fixture
+def routing(monkeypatch, tmp_path):
+    """The port's engine module with a private table path, no drill and
+    the XOR door open."""
+    from cubefs_tpu_torch.codec import engine as E
+
+    monkeypatch.setattr(E, "_policy_path", lambda: str(tmp_path / "CROSSOVER.json"))
+    monkeypatch.setattr(E, "_policy", None)
+    monkeypatch.delenv("CUBEFS_CODEC_DEAD", raising=False)
+    monkeypatch.delenv("CUBEFS_CODEC_XOR", raising=False)
+    monkeypatch.delenv("CUBEFS_TPU_EC_ENGINE", raising=False)
+    return E
+
+
+def _host_stripes(seed, b, n, s):
+    return np.random.default_rng(seed).integers(0, 256, (b, n, s), dtype=np.uint8)
+
+
+def _steps(engine: str) -> float:
+    from cubefs_tpu_torch.utils import metrics
+
+    return metrics.codec_batch_steps.value(op="encode", engine=engine)
+
+
+@pytest.mark.parametrize("engine,served", [("auto", "cuda"), ("numpy-xor", "numpy-xor"),
+                                           ("cpp", "cpp")])
+def test_host_submissions_coalesce_and_count_the_served_leg(routing, engine, served):
+    """Numpy submissions of one geometry park and land as ONE step on the
+    leg the engine routes to; ``auto`` picks it by the coalesced step's
+    bytes (each 768-byte stripe alone would go to ``cpp``, the six
+    together are beyond the table and go to ``cuda``)."""
+    routing._policy = [[1024, "cpp"]]
+    bc = BatchCodec(enabled=True)
+    inputs = [_host_stripes(i, 1, 6, 128) for i in range(6)]
+    before = _steps(served)
+    futs = [bc.submit_encode_async("cpu", d, 3, engine=engine) for d in inputs]
+    outs = [f.result() for f in futs]
+    assert (bc.steps, bc.submissions) == (1, 6)
+    assert _steps(served) == before + 1
+    assert routing.last_dispatch["served"] == served
+    for d, out in zip(inputs, outs):
+        assert isinstance(out, np.ndarray)
+        assert np.array_equal(out, CPU.encode_parity(torch.from_numpy(d), 3).numpy())
+    alone = bc.submit_encode("cpu", inputs[0], 3, engine=engine)
+    assert np.array_equal(alone, outs[0])
+    if engine == "auto":
+        assert routing.last_dispatch["served"] == "cpp"
+
+
+def test_host_xor_door_and_drill_label_the_step(routing, monkeypatch):
+    bc = BatchCodec(enabled=True)
+    d = _host_stripes(3, 2, 6, 64)
+    want = CPU.matrix_apply(ROWS, torch.from_numpy(d)).numpy()
+    monkeypatch.setenv("CUBEFS_CODEC_XOR", "0")
+    assert np.array_equal(bc.submit_apply("cpu", ROWS, d, engine="numpy-xor"), want)
+    assert routing.last_dispatch["served"] == "numpy"
+    monkeypatch.delenv("CUBEFS_CODEC_XOR")
+    routing._policy = [[1 << 62, "cuda"]]
+    monkeypatch.setenv("CUBEFS_CODEC_DEAD", "cuda")
+    assert np.array_equal(bc.submit_apply("cpu", ROWS, d, engine="auto"), want)
+    assert routing.last_dispatch == {"method": "matrix_apply", "requested": "cuda",
+                                     "served": "cpp"}
+    monkeypatch.delenv("CUBEFS_CODEC_DEAD")
+    assert np.array_equal(bc.submit_apply("cpu", ROWS, d, engine="auto"), want)
+    assert routing.last_dispatch["served"] == "cuda"
+
+
+def test_host_submissions_write_their_out_rows(routing):
+    """CPU tensors and numpy arrays mix in one step; each submission's
+    ``out=`` rows receive its parity."""
+    bc = BatchCodec(enabled=True)
+    stripes = [np.zeros((1, 9, 96), np.uint8) for _ in range(2)] + [torch.zeros((2, 9, 96),
+                                                                                dtype=torch.uint8)]
+    for i, st in enumerate(stripes):
+        st[:, :6] = torch.from_numpy(_host_stripes(20 + i, st.shape[0], 6, 96)) \
+            if isinstance(st, torch.Tensor) else _host_stripes(20 + i, st.shape[0], 6, 96)
+    futs = [bc.submit_encode_async("cpu", st[:, :6], 3, out=st[:, 6:], engine="cpp-xor")
+            for st in stripes]
+    for st, f in zip(stripes, futs):
+        f.result()
+        t = torch.as_tensor(st)
+        assert torch.equal(t[:, 6:], CPU.encode_parity(t[:, :6], 3))
+    assert bc.steps == 1
+
+
+def test_host_submission_validation(routing):
+    bc = BatchCodec(enabled=True)
+    with pytest.raises(KeyError, match="unknown ec engine 'tpu'"):
+        bc.submit_encode("cpu", np.zeros((1, 4, 32), np.uint8), 2, engine="tpu")
+    with pytest.raises(ValueError, match="host-resident"):
+        bc.submit_encode("cpu", torch.zeros((1, 4, 32), dtype=torch.uint8, device="meta"), 2,
+                         engine="numpy")
+    with pytest.raises(ValueError, match="writable"):
+        bc.submit_encode("cpu", np.zeros((1, 4, 32), np.uint8), 2, engine="numpy",
+                         out=np.zeros((1, 3, 32), np.uint8))
+    bad = bc.submit_encode_async("cpu", np.zeros((1, 4, 32), np.int16), 2, engine="numpy")
+    with pytest.raises(CodecAdmissionError, match="uint8"):
+        bad.result()
+    with pytest.raises(KeyError):
+        admit("cpu", engine="tpu")
+    assert admit(None, engine="numpy").device is None  # a host engine needs no card
+
+
+def test_raising_leg_fails_the_step_and_quarantines_nothing(routing, monkeypatch):
+    routing._policy = [[1 << 62, "cuda"]]
+    bc = BatchCodec(enabled=True)
+    real = routing.CudaEngine.encode_parity
+
+    def lost(self, data, n_parity, out=None):
+        raise RuntimeError("CUDA error: device lost")
+
+    monkeypatch.setattr(routing.CudaEngine, "encode_parity", lost)
+    futs = [bc.submit_encode_async("cpu", _host_stripes(i, 1, 4, 32), 2, engine="auto")
+            for i in range(3)]
+    for f in futs:
+        with pytest.raises(RuntimeError, match="device lost"):
+            f.result()
+    monkeypatch.setattr(routing.CudaEngine, "encode_parity", real)
+    d = _host_stripes(9, 1, 4, 32)
+    assert np.array_equal(bc.submit_encode("cpu", d, 2, engine="auto"),
+                          CPU.encode_parity(torch.from_numpy(d), 2).numpy())
+    assert routing.last_dispatch["served"] == "cuda"
+
+
+ENGINES = ["numpy", "cpp", "numpy-xor", "cpp-xor", "auto"]
+
+
+@pytest.fixture
+def ref_codec(monkeypatch):
+    """The reference's encoder module (it imports jax), its routing pinned
+    to a table that keeps every stripe on its host legs."""
+    from cubefs_tpu.codec import encoder as ref_encoder
+    from cubefs_tpu.codec import engine as ref_engine
+
+    monkeypatch.setattr(ref_engine, "_policy", [[1 << 62, "cpp"]])
+    monkeypatch.setattr(ref_engine, "_dead_engines", set())
+    return ref_encoder
+
+
+@pytest.mark.parametrize("as_tensor", [False, True], ids=["numpy", "cpu_tensor"])
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("mode", ["EC6P3", "EC4P4L2", "EC16P20L2", "EC6P6MSR"])
+def test_host_encoder_round_trips_equal_the_reference(routing, ref_codec, mode, engine,
+                                                      as_tensor):
+    """``new_encoder(CodecConfig(engine=...))`` keeps stripes in host
+    memory: encode, verify, reconstruct and reconstruct_data write the
+    caller's rows and equal the reference's encoder of the same engine."""
+    routing._policy = [[2048, "cpp-xor"], [1 << 62, "cuda"]]
+    enc = new_encoder(CodecConfig(tcm.CodeMode[mode], engine=engine, device="cpu"))
+    ref = ref_codec.new_encoder(ref_codec.CodecConfig(mode=tcm.CodeMode[mode].value,
+                                                      engine=engine))
+    payload = np.random.default_rng(len(mode)).integers(0, 256, 6 * 701 + 5, dtype=np.uint8)
+    want = ref.encode(ref.split(payload.tobytes()))
+    st = enc.split(payload.tobytes())
+    assert isinstance(st, np.ndarray) and st.shape == want.shape
+    if as_tensor:
+        st = torch.from_numpy(st)
+    assert enc.encode(st) is st
+    assert np.array_equal(np.asarray(st), want)
+    assert enc.verify(st) and ref.verify(want)
+    t = enc.t
+    bad = [1, t.n + 1] + ([t.n + t.m] if t.l else [])
+    for fn in ("reconstruct", "reconstruct_data"):
+        broken, ref_broken = st.clone() if as_tensor else st.copy(), want.copy()
+        broken[bad] = 0
+        ref_broken[bad] = 0
+        assert getattr(enc, fn)(broken, bad) is broken
+        getattr(ref, fn)(ref_broken, bad)
+        assert np.array_equal(np.asarray(broken), ref_broken), fn
+    assert enc.join(st, payload.size) == payload.tobytes()
+    pending = enc.encode_async(st)
+    assert pending.wait() is st and np.array_equal(np.asarray(st), want)
+
+
+def test_host_encoder_refuses_device_tensors_and_read_only_writes(routing):
+    enc = new_encoder(CodecConfig(tcm.CodeMode.EC6P3, engine="numpy"))
+    assert enc.device is None and enc.host
+    from cubefs_tpu_torch.codec.encoder import ECError
+
+    with pytest.raises(ECError, match="host memory"):
+        enc.encode(torch.zeros((9, 16), dtype=torch.uint8, device="meta"))
+    ro = np.zeros((9, 16), np.uint8)
+    ro.flags.writeable = False
+    with pytest.raises(ECError, match="read-only"):
+        enc.encode(ro)
+    assert enc.verify(ro)
+    with pytest.raises(ECError, match="uint8"):
+        enc.encode(np.zeros((9, 16), np.int32))
 
 
 # ---------------- on the card ----------------

@@ -101,3 +101,37 @@ def test_msr_reconstruct_and_repair_shard_on_card(cuda_device, mode):
         payloads = syms[:, list(helpers)].contiguous()
         rebuilt = rs_kernel.msr_repair_shard(payloads, t.n, t.total, t.d, failed, helpers)
         assert torch.equal(rebuilt, golden[:, failed])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["encode_EC12P4", "recover_2x12", "lrc_22x16", "msr_repair_6x11",
+                                  "empty_s"])
+def test_five_legs_agree_on_card(cuda_device, case):
+    """The engine layer's legs (``cuda`` on the card through hostio, and
+    the host legs ``cpp``, ``cpp-xor``, ``numpy-xor``, ``numpy``) give the
+    same bytes, ragged S and batches included; ``auto`` beyond its table
+    is one launch of A."""
+    from cubefs_tpu_torch.codec import engine as E
+    from cubefs_tpu_torch.ops import gf256, msr
+
+    coeff, c = {
+        "encode_EC12P4": (gf256.parity_matrix(12, 4), 12),
+        "recover_2x12": (rs_kernel.reconstruct_rows(12, 16, [0, *range(2, 7), *range(8, 16)],
+                                                    [1, 7]), 12),
+        "lrc_22x16": (new_encoder(CodecConfig(tcm.CodeMode.EC16P20L2, engine="numpy"))
+                      ._encode_rows, 16),
+        "msr_repair_6x11": (msr.repair_rows(6, 12, 11, 0, tuple(range(1, 12))), 11),
+        "empty_s": (gf256.parity_matrix(6, 3), 6),
+    }[case]
+    s = 0 if case == "empty_s" else 699_051
+    x = np.random.default_rng(len(case)).integers(0, 256, (2, c, s), dtype=np.uint8)
+    outs = {leg: E.host_call(leg, "matrix_apply", cuda_device, coeff, x)
+            for leg in ("cuda", "cpp", "cpp-xor", "numpy-xor", "numpy")}
+    for leg, y in outs.items():
+        assert y.shape == (2, coeff.shape[0], s) and np.array_equal(y, outs["numpy"]), leg
+    auto = E.AutoEngine(cuda_device)
+    before = _build.LAUNCHES["gf_apply"]
+    assert np.array_equal(auto.matrix_apply(coeff, np.tile(x, (16, 1, 1)))[:2], outs["numpy"])
+    if s:
+        assert E.last_dispatch["served"] == "cuda"  # 16 * 2 stripes beyond any table's 16 MiB
+        assert _build.LAUNCHES["gf_apply"] == before + 1

@@ -175,6 +175,82 @@ def test_replies_equal_the_reference(port, refs, shm_file, op, n, m, s):
         assert payload[-B * 2 * s:] == np.ascontiguousarray(full[:, [1, n + 1]]).tobytes()
 
 
+# ---------------- host engines and auto ----------------
+
+@pytest.fixture
+def routing(monkeypatch, tmp_path):
+    """Both packages' routing pinned: the port's table at a private path,
+    the reference's to a table of its host legs; no drill, the door open."""
+    from cubefs_tpu.codec import engine as ref_engine
+    from cubefs_tpu_torch.codec import engine as E
+
+    monkeypatch.setattr(E, "_policy_path", lambda: str(tmp_path / "CROSSOVER.json"))
+    monkeypatch.setattr(E, "_policy", None)
+    monkeypatch.setattr(ref_engine, "_policy", [[1 << 62, "cpp"]])
+    monkeypatch.setattr(ref_engine, "_dead_engines", set())
+    monkeypatch.delenv("CUBEFS_CODEC_DEAD", raising=False)
+    monkeypatch.delenv("CUBEFS_CODEC_XOR", raising=False)
+    return E
+
+
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("engine", ["auto", "numpy"])
+def test_host_engine_replies_equal_the_reference(ref, routing, shm_file, monkeypatch, engine,
+                                                op):
+    """The service with ``ec_engine`` auto or numpy answers as the
+    reference's service with the same engine: the same meta and bytes,
+    CRCs through zlib under numpy (B's plain version under auto)."""
+    routing._policy = [[4096, "cpp-xor"], [1 << 62, "cuda"]]  # both sides of the table
+    port_svc = CodecService(engine=engine, device="cpu")
+    ref_svc = ref.service.CodecService(engine=engine)
+    assert port_svc.rpc_engine({}, b"") == ref_svc.rpc_engine({}, b"") == {"engine": engine,
+                                                                           "shm": True}
+    for n, m, s in ((12, 4, 4099), (6, 3, 64)):
+        args, body, shm_in, shm_out = _request(op, n, m, s, seed=n * 31 + s)
+        got = _serve(port_svc, op, args, body, shm_in, shm_out, shm_file)
+        assert got == _serve(ref_svc, op, args, body, shm_in, shm_out, shm_file), (n, m, s)
+    if op == "crc32" and engine == "numpy":  # zlib on the host: nothing goes to the device
+        monkeypatch.setattr(hostio, "to_device", None)
+        assert _serve(port_svc, op, args, body, None, 0, shm_file) == got
+
+
+def test_auto_service_raises_a_failing_cuda_leg_as_500(routing, monkeypatch):
+    """No leg stands in for a failing one: the reply is a 500 with the
+    leg's error, and the next call goes to ``cuda`` again."""
+    routing._policy = [[1 << 62, "cuda"]]
+    svc = CodecService(engine="auto", device="cpu")
+    srv = rpc.RpcServer(rpc.expose(svc)).start()
+    args, body, _, _ = _request("encode", 6, 3, 4096, seed=3)
+    real = routing.CudaEngine.encode_parity
+
+    def lost(self, data, n_parity, out=None):
+        raise RuntimeError("CUDA error: device lost")
+
+    try:
+        monkeypatch.setattr(routing.CudaEngine, "encode_parity", lost)
+        with pytest.raises(rpc.RpcError) as err:
+            rpc.call(srv.addr, "encode", args, body)
+        assert err.value.code == 500 and "device lost" in str(err.value)
+        monkeypatch.setattr(routing.CudaEngine, "encode_parity", real)
+        meta, payload = rpc.call(srv.addr, "encode", args, body)
+        assert payload == _stripes(3, 6, 3, 4096)[:, 6:].tobytes()
+        assert routing.last_dispatch["served"] == "cuda"
+    finally:
+        srv.stop()
+
+
+def test_auto_role_loads_the_persisted_table(routing):
+    table = [[1 << 20, "cpp"], [4 << 20, "cpp-xor"], [16 << 20, "cuda"]]
+    with open(routing._policy_path(), "w") as f:
+        json.dump({"table": table, "platform": "cpu", "timings_s": {}}, f)
+    srv, svc = cmd.run_role({"role": "codec", "ec_engine": "auto", "device": "cpu"})
+    try:
+        assert svc.engine.name == "auto" and routing._policy == table
+        assert rpc.call(srv.addr, "engine", {}, b"")[0] == {"engine": "auto", "shm": True}
+    finally:
+        srv.stop()
+
+
 # ---------------- validation: codes and messages ----------------
 
 _GEO = {"n": 4, "m": 2, "shard_size": 8}
@@ -553,8 +629,8 @@ def test_cmd_serves_the_codec_role_and_stops_on_sigterm(tmp_path):
 def test_cmd_refuses_other_roles_and_engines():
     with pytest.raises(SystemExit, match="unknown role 'master'"):
         cmd.run_role({"role": "master"})
-    with pytest.raises(KeyError, match="unknown ec engine 'numpy'"):
-        cmd.run_role({"role": "codec", "ec_engine": "numpy", "device": "cpu"})
+    with pytest.raises(KeyError, match="unknown ec engine 'tpu'"):
+        cmd.run_role({"role": "codec", "ec_engine": "tpu", "device": "cpu"})
 
 
 # ---------------- on the card ----------------
