@@ -37,8 +37,15 @@ service: the server's ``codec`` role started as its users start it
 over its wire with ``http.client`` (8 MiB blobs over the body, 4 MiB
 shards through ``/dev/shm``, CRCs, verify, 32 concurrent clients, four
 refusals), every reply held against the plain versions and zlib, the
-coalescing and byte counts read from its ``/metrics``. Each phase
-prints one JSON line; any failure, in any rank, raises.
+coalescing and byte counts read from its ``/metrics``. After the codec
+engine layer (host legs, the measured ``auto`` crossover), the blob
+plane (``cubefs_tpu_torch/blob/``): an in-process cluster of 6 blobnodes
+x 3 disks PUTs 64 MiB objects under ``auto`` and ``cuda``, reads them
+back healthy and with two disks down, repairs a broken disk through the
+scheduler and the worker and an EC6P6MSR unit through the sub-shard
+path, every byte held against what was written and the parity on disk
+against the plain version. Each phase prints one JSON line; any
+failure, in any rank, raises.
 
 The last lines are the kernels' record, the card's name and power limit
 as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -98,6 +105,10 @@ LEGS = ("cuda", "cpp", "cpp-xor", "numpy-xor", "numpy")
 BEYOND_TABLE = 64 * MIB
 ENGINE_THREADS, ENGINE_PUTS = 32, 8
 ENGINES_CFG = {"role": "codec", "listen_port": 0, "ec_engine": "auto"}
+BLOB_PUT = 64 * MIB  # phase blob: an object of eight 8 MiB blobs, EC12P4 by policy
+BLOB_PUTS = 8  # per engine
+BLOB_MSR = 24 * MIB  # one EC6P6MSR object: three 8 MiB blobs
+BLOB_NODES, BLOB_DISKS = 6, 3  # EC12P4's 16 units and 2 spares
 # the C and D instantiations the kernels' record reports: (case, extract, probe, grid)
 RECORDED_BM = (("tuning_rows_2x12_B4", "bcast", None, "flat"),
                ("tuning_rows_2x12_B4", "bcast", "nodot", "stripe"))
@@ -469,6 +480,265 @@ def engines_phase(root: str, dev, card: str, *, shard: int = SHARD, blob: int = 
             "service": service, "launches": launches, "checks": checks}
 
 
+def blob_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = BLOB_PUTS,
+               msr_payload: int = BLOB_MSR, blob_size: int = BLOB, reps: int = 3) -> dict:
+    """Phase ``blob``: the blob plane's erasure-coded data path, the
+    reference's own test pattern (an in-process cluster, direct-call
+    transport) at the reference's defaults: 6 blobnodes x 3 disks, 8 MiB
+    blobs, the default codemode policies, no quorum override.
+
+    ``n_puts`` PUTs of ``put`` bytes (EC12P4) through an access under
+    ``auto`` and as many under ``cuda``, each read back; GETs with two of
+    one volume's disks down under both engines; one of that volume's
+    disks broken, the scheduler's tasks drained by the worker, every
+    repointed unit's shards held against the shards written at PUT and
+    every object read back; one EC6P6MSR object of ``msr_payload`` bytes
+    repaired through the sub-shard path; and, for one stripe, the parity
+    on disk against ``rs_kernel``'s plain version on the CPU. Each case
+    records its wall-clock ms and GiB/s, kernel A's launches, the leg
+    that served its codec steps (``codec_batch_steps`` by leg,
+    ``repair_codec_leg``, ``last_dispatch``), and, for a step of its
+    shapes measured alone afterwards, its whole time between CUDA events
+    (host stripes in and out; A's own device time at these shapes is
+    measured in phase ``gf_apply``). Returns the record with ``checks``
+    and ``launches`` (the path's, measurement launches excluded)."""
+    import torch
+
+    from cubefs_tpu_torch.blob.access import AccessConfig, AccessHandler
+    from cubefs_tpu_torch.blob.blobnode import BlobNode
+    from cubefs_tpu_torch.blob.clustermgr import ClusterMgr
+    from cubefs_tpu_torch.blob.mq import MessageQueue
+    from cubefs_tpu_torch.blob.scheduler import Scheduler
+    from cubefs_tpu_torch.blob.worker import RepairWorker
+    from cubefs_tpu_torch.codec import codemode as cm
+    from cubefs_tpu_torch.codec import engine as engines
+    from cubefs_tpu_torch.codec import hostio
+    from cubefs_tpu_torch.ops import _build, rs_kernel
+    from cubefs_tpu_torch.utils import benchtime, metrics, rpc
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 10)
+    print(json.dumps({"phase": "blob", "card": card, "policy": engines._load_policy(dev)}),
+          flush=True)
+    _build.reset_launches()
+    workdir = tempfile.mkdtemp(prefix="cubefs-smoke-blob-")
+    cases: dict[str, dict] = {}
+    nodes: list = []
+
+    def launches_a() -> int:
+        return _build.LAUNCHES["gf_apply"]
+
+    def counter(metric, **want) -> dict[str, float]:
+        """The metric's series matching ``want``, by their first other label."""
+        names = [n for n in metric.label_names if n not in want]
+        return {k[metric.label_names.index(names[0])]: v for k, v in metric.samples()
+                if all(k[metric.label_names.index(a)] == b for a, b in want.items())}
+
+    def delta(before: dict, after: dict) -> dict:
+        return {k: v - before.get(k, 0.0) for k, v in after.items() if v != before.get(k, 0.0)}
+
+    def steps() -> dict[str, float]:
+        return counter(metrics.codec_batch_steps, op="encode")
+
+    def timed_objects(label: str, fn, objs: list, nbytes: int) -> list:
+        """Run ``fn(obj)`` per object, timing each; the case's record."""
+        a0, s0 = launches_a(), steps()
+        g0 = metrics.reconstruct_reads.value(path="global")
+        out, ms = [], []
+        for obj in objs:
+            t = time.perf_counter()
+            out.append(fn(obj))
+            ms.append((time.perf_counter() - t) * 1e3)
+        med = statistics.median(ms)
+        cases[label] = {"count": len(objs), "bytes": nbytes, "ms": med,
+                        "ms_runs": ms, "gib_s": nbytes / (med / 1e3) / 2**30,
+                        "a_launches": launches_a() - a0, "encode_steps": delta(s0, steps()),
+                        "degraded_blobs": metrics.reconstruct_reads.value(path="global") - g0,
+                        "last_dispatch": dict(engines.last_dispatch)}
+        return out
+
+    def shards_on(disk_id: int) -> dict:
+        """{(vid, unit index, bid): bytes} of every unit on a disk."""
+        out = {}
+        for vid, idx in cmgr.volumes_on_disk(disk_id):
+            u = cmgr.get_volume(vid).units[idx]
+            node = nodes[int(u.node_addr.removeprefix("node"))]
+            for bid, _, _ in node.list_chunk(u.disk_id, u.chunk_id):
+                out[(vid, idx, bid)] = node.get_shard(u.disk_id, u.chunk_id, bid)[0]
+        return out
+
+    def rebuilt_equal(original: dict, broken: int) -> bool:
+        ok = True
+        for (vid, idx, bid), blob in original.items():
+            u = cmgr.get_volume(vid).units[idx]
+            node = nodes[int(u.node_addr.removeprefix("node"))]
+            ok = ok and u.disk_id != broken and \
+                node.get_shard(u.disk_id, u.chunk_id, bid)[0] == blob
+        return ok
+
+    def drain() -> float:
+        t = time.perf_counter()
+        while wk.run_once():
+            pass
+        return time.perf_counter() - t
+
+    try:
+        cmgr = ClusterMgr()
+        cmc, pool = rpc.Client(cmgr), rpc.NodePool()
+        for i in range(BLOB_NODES):
+            node = BlobNode(i, [os.path.join(workdir, f"n{i}d{d}") for d in range(BLOB_DISKS)],
+                            cmc, addr=f"node{i}", device=dev)
+            node.register()
+            node.send_heartbeat()
+            pool.bind(node.addr, node)
+            nodes.append(node)
+        repair_q, delete_q = MessageQueue(), MessageQueue()
+        acc = {e: AccessHandler(cmc, pool, AccessConfig(blob_size=blob_size, engine=e,
+                                                        device=dev),
+                                repair_queue=repair_q, delete_queue=delete_q)
+               for e in ("auto", "cuda")}
+        sched = Scheduler(cmgr, repair_queue=repair_q, delete_queue=delete_q, node_pool=pool,
+                          device=dev)
+        wk = RepairWorker(rpc.Client(sched), cmc, pool, device=dev)
+
+        # -- PUTs and GETs under both engines --------------------------------
+        objs = {}
+        for e in ("auto", "cuda"):
+            payloads = [rng.integers(0, 256, put, dtype=np.uint8).tobytes()
+                        for _ in range(n_puts)]
+            locs = timed_objects(f"put_{e}", acc[e].put, payloads, put)
+            objs[e] = list(zip(locs, payloads))
+            got = timed_objects(f"get_{e}", lambda o, e=e: acc[e].get(o[0]), objs[e], put)
+            cases[f"get_{e}"]["equal"] = all(g == d for g, (_, d) in zip(got, objs[e]))
+        loc0 = objs["auto"][0][0]
+        t12 = cm.tactic(loc0.codemode)
+        vol0 = cmgr.get_volume(loc0.slices[0].vid)
+
+        # -- the parity on disk against the plain version on the CPU --------
+        bid0 = loc0.slices[0].min_bid
+        stripe = np.stack([np.frombuffer(nodes[int(u.node_addr.removeprefix("node"))]
+                                         .get_shard(u.disk_id, u.chunk_id, bid0)[0], np.uint8)
+                           for u in vol0.units])
+        plain = rs_kernel.encode_parity(torch.from_numpy(stripe[None, :t12.n].copy()), t12.m)
+        disk_parity_equal = bool(np.array_equal(plain[0].numpy(), stripe[t12.n:]))
+
+        # -- degraded GETs: two of vol0's disks down -------------------------
+        down = [u for u in vol0.units[:2]]
+        for u in down:
+            nodes[int(u.node_addr.removeprefix("node"))].break_disk(u.disk_id)
+        for e in ("auto", "cuda"):
+            got = timed_objects(f"degraded_get_{e}", lambda o, e=e: acc[e].get(o[0]),
+                                objs[e], put)
+            cases[f"degraded_get_{e}"]["equal"] = all(g == d for g, (_, d) in zip(got, objs[e]))
+            cases[f"degraded_get_{e}"]["down_disks"] = [u.disk_id for u in down]
+        for u in down:
+            nodes[int(u.node_addr.removeprefix("node"))]._broken.discard(u.disk_id)
+
+        # -- one disk broken: the scheduler's tasks, drained -----------------
+        victim = vol0.units[2]
+        original = shards_on(victim.disk_id)
+        a0, legs0 = launches_a(), counter(metrics.repair_codec_leg)
+        nodes[int(victim.node_addr.removeprefix("node"))].break_disk(victim.disk_id)
+        n_tasks = sched.mark_disk_broken(victim.disk_id)
+        secs = drain()
+        rebuilt = sum(len(b) for b in original.values())
+        cases["repair_disk"] = {
+            "disk": victim.disk_id, "tasks": n_tasks, "completed": wk.completed,
+            "failed": wk.failed, "units": len({k[:2] for k in original}),
+            "shards": len(original), "rebuilt_bytes": rebuilt, "seconds": secs,
+            "gib_s": rebuilt / secs / 2**30, "a_launches": launches_a() - a0,
+            "codec_legs": delta(legs0, counter(metrics.repair_codec_leg)),
+            "equal": rebuilt_equal(original, victim.disk_id),
+            "disk_status": int(cmgr.disks[victim.disk_id].status)}
+        got = timed_objects("get_after_repair", lambda o: acc["auto"].get(o[0]),
+                            objs["auto"] + objs["cuda"], put)
+        cases["get_after_repair"]["equal"] = all(
+            g == d for g, (_, d) in zip(got, objs["auto"] + objs["cuda"]))
+
+        # -- one EC6P6MSR object, a unit repaired through the sub-shard path --
+        msr_data = rng.integers(0, 256, msr_payload, dtype=np.uint8).tobytes()
+        t = time.perf_counter()
+        msr_loc = acc["auto"].put(msr_data, codemode=cm.CodeMode.EC6P6MSR)
+        msr_put_ms = (time.perf_counter() - t) * 1e3
+        msr_vol = cmgr.get_volume(msr_loc.slices[0].vid)
+        mvictim = msr_vol.units[0]
+        mnode = nodes[int(mvictim.node_addr.removeprefix("node"))]
+        morig = {(msr_vol.vid, 0, bid): mnode.get_shard(mvictim.disk_id, mvictim.chunk_id,
+                                                         bid)[0]
+                 for bid, _, _ in mnode.list_chunk(mvictim.disk_id, mvictim.chunk_id)}
+        sub0, fb0 = metrics.repair_subshard_reads.value(), counter(metrics.repair_msr_fallbacks)
+        a0, legs0 = launches_a(), counter(metrics.repair_codec_leg)
+        mnode.break_disk(mvictim.disk_id)
+        sched.manual_migrate(msr_vol.vid, 0)
+        msecs = drain()
+        mt = cm.tactic(cm.CodeMode.EC6P6MSR)
+        cases["repair_msr_unit"] = {
+            "put_ms": msr_put_ms, "bids": len(morig), "seconds": msecs,
+            "rebuilt_bytes": sum(len(b) for b in morig.values()),
+            "subshard_reads": metrics.repair_subshard_reads.value() - sub0,
+            "fallbacks": delta(fb0, counter(metrics.repair_msr_fallbacks)),
+            "a_launches": launches_a() - a0,
+            "codec_legs": delta(legs0, counter(metrics.repair_codec_leg)),
+            "equal": rebuilt_equal(morig, mvictim.disk_id)
+            and acc["auto"].get(msr_loc) == msr_data}
+        launches = dict(_build.LAUNCHES)  # the path's; measurements follow
+
+        # -- each case's codec step alone, a whole call between CUDA events --
+        # (host numpy in and out: the staging, the copies and A; A's own
+        # device time at these shapes is phase gf_apply's blob_* cases)
+        s_blob = -(-blob_size // t12.n)
+        nb = loc0.slices[0].count
+        stack = rng.integers(0, 256, (nb, t12.total, s_blob), dtype=np.uint8)
+        one = np.ascontiguousarray(stack[0])
+        solve = [i for i in range(t12.total) if i != 2][:t12.n + 1]
+        rows = rs_kernel.reconstruct_rows(t12.n, t12.total, solve[:t12.n], [2, solve[t12.n]])
+        survivors = np.ascontiguousarray(stack[:, solve[:t12.n]])
+        enc = {e: acc[e]._encoder(loc0.codemode) for e in ("auto", "cuda")}
+        steps_alone = {
+            "put_auto": lambda: enc["auto"].encode(stack),
+            "put_cuda": lambda: enc["cuda"].encode(stack),
+            "degraded_get_cuda": lambda: enc["cuda"].reconstruct_data(one, [0, 1]),
+            "repair_disk": lambda: wk.codec.matrix_apply(rows, survivors),
+        }
+        for label, fn in steps_alone.items():
+            cases[label]["step_alone_ms"] = benchtime.timed_ms(fn, reps)
+        dev_stack = hostio.to_device(stack, stack.shape, enc["cuda"].device)
+        cases["put_cuda"]["to_device_ms"] = benchtime.timed_ms(
+            lambda: hostio.to_device(stack, stack.shape, enc["cuda"].device), reps)
+        cases["put_cuda"]["to_host_ms"] = benchtime.timed_ms(
+            lambda: hostio.to_host(dev_stack[:, t12.n:], out=stack[:, t12.n:]), reps)
+        del dev_stack
+    finally:
+        for node in nodes:
+            node.stop()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    c = cases
+    checks = {
+        **{f"{k}.equal": v["equal"] for k, v in c.items() if "equal" in v},
+        "disk_parity_equals_plain": disk_parity_equal,
+        "put_auto_launched_a_each": c["put_auto"]["a_launches"] == n_puts,
+        "put_auto_served_by_cuda": c["put_auto"]["encode_steps"] == {"cuda": n_puts},
+        "put_cuda_launched_a_each": c["put_cuda"]["a_launches"] == n_puts,
+        "degraded_gets_decoded": all(c[k]["degraded_blobs"] > 0
+                                     for k in ("degraded_get_auto", "degraded_get_cuda")),
+        "degraded_cuda_launched_a_per_blob": c["degraded_get_cuda"]["a_launches"]
+        == c["degraded_get_cuda"]["degraded_blobs"],
+        "repair_all_tasks_done": c["repair_disk"]["completed"] == c["repair_disk"]["tasks"] > 0
+        and c["repair_disk"]["failed"] == 0,
+        "repair_launched_a": c["repair_disk"]["a_launches"] > 0
+        and c["repair_disk"]["codec_legs"].get("cuda", 0) > 0,
+        "repair_disk_repaired": c["repair_disk"]["disk_status"] == 4,
+        "msr_subshard_path": c["repair_msr_unit"]["subshard_reads"] >= mt.d * len(morig)
+        and not c["repair_msr_unit"]["fallbacks"],
+    }
+    return {"phase": "blob", "card": card, "seconds": time.perf_counter() - t_phase,
+            "cluster": {"nodes": BLOB_NODES, "disks_per_node": BLOB_DISKS,
+                        "blob_size": blob_size, "put_bytes": put, "puts_per_engine": n_puts,
+                        "codemode": cm.CodeMode(loc0.codemode).name, "blob_shard": s_blob},
+            "cases": cases, "launches": launches, "checks": checks}
+
+
 def main() -> int:
     import torch
 
@@ -488,6 +758,7 @@ def main() -> int:
                                       gf_cuda, rs_kernel)
     from cubefs_tpu_torch.parallel import dryrun, launch
     from cubefs_tpu_torch.tuning import gf_tuning
+    from cubefs_tpu_torch.utils import trace as tracelib
     from cubefs_tpu_torch.utils.benchtime import device_ms, kernel_ms
     from cubefs_tpu_torch.utils.benchtime import timed_ms as time_ms
 
@@ -554,6 +825,9 @@ def main() -> int:
     repair_helpers = tuple(range(1, msr_total))
     blob_s = -(-BLOB // n)
     svc_rows = rs_kernel.reconstruct_rows(n, n + m, list(plan.present), [1, 7])
+    blob_degraded_rows = rs_kernel.reconstruct_rows(n, n + m, list(range(2, n + 2)), [0, 1])
+    blob_solve = [i for i in range(n + m) if i != 2]
+    blob_repair_rows = rs_kernel.reconstruct_rows(n, n + m, blob_solve[:n], [2, blob_solve[n]])
     gf_cases = [  # (label, coeff, shards, out)
         ("repair_rs12p4_bad1_7_B4", step_rows, surviving[:, :n, :], None),
         ("encode_rs12p4_B8", gf256.parity_matrix(n, m), rand(8, n, SHARD), None),
@@ -582,6 +856,13 @@ def main() -> int:
         ("service_reconstruct_2x12_S699051_B4", svc_rows, rand(4, n, blob_s), None),
         ("service_encode_shm_B4", gf256.parity_matrix(n, m), rand(4, n, SHARD), None),
         ("service_reconstruct_shm_2x12_B4", svc_rows, rand(4, n, SHARD), None),
+        # phase blob's shapes (measured here: profiler sessions late in the
+        # process lose records): a 64 MiB PUT's stack of eight 8 MiB blobs,
+        # a degraded blob's rows of shards 0 and 1, a repair batch's rows
+        # of the lost unit 2 and the extra survivor 13 over 8 bids
+        ("blob_put_EC12P4_S699051_B8", gf256.parity_matrix(n, m), rand(8, n, blob_s), None),
+        ("blob_degraded_2x12_S699051_B1", blob_degraded_rows, rand(1, n, blob_s), None),
+        ("blob_repair_2x12_S699051_B8", blob_repair_rows, rand(8, n, blob_s), None),
     ]
     coeff_36x36 = gf_cases[4][1]
     gf_results = []
@@ -1138,7 +1419,25 @@ def main() -> int:
                           (f"one_by_one_EC12P4_{tag}_x48", one_by_one)):
             e2e_case(label, fn, moved=moved, least=moved * (n + m) // n)
         del puts, got
-    emit({"phase": "end_to_end", "cases": e2e})
+
+    # what each step's trace span costs on this host: a stage:codec_step
+    # root with 48 follows-from links, its tags, its collection and its
+    # stage sample, as codec/batcher.py opens one per step (mean of 1000)
+    refs = [tracelib.SpanRef(f"{i:016x}", f"{i:016x}", True, "blob.put") for i in range(48)]
+
+    def step_span():
+        span = tracelib.start_span("stage:codec_step", links=refs)
+        span.set_tag("stage", "codec_step").set_tag("op", "encode").set_tag("stripes", 48)
+        with span:
+            pass
+        tracelib.observe_stage("codec_step", "blob.put", span.duration())
+
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        step_span()
+    span_us = (time.perf_counter() - t0) * 1e3
+    tracelib.reset_collector()
+    emit({"phase": "end_to_end", "cases": e2e, "codec_step_span_us": span_us})
 
     # -- 9. the GF tuning path: both rounds of tuning/gf_tuning.py ----------
     _build.reset_launches()
@@ -1406,7 +1705,20 @@ def main() -> int:
     if failed:
         raise AssertionError(f"engines checks failed: {failed}")
 
-    # -- 12. the sharded step: 8 ranks over torch.distributed ----------------
+    # -- 12. the blob plane: PUT, GET, degraded GET, disk repair -------------
+    # After phase engines, so that auto reads the table measured on this
+    # card. Counts from 0: A only (B is not on the path: the blob plane
+    # takes its CRCs on the host).
+    torch.cuda.empty_cache()
+    blob = blob_phase(dev, card)
+    blob["a_device_ms"] = {r["case"]: r["device_ms"] for r in gf_results
+                           if r["case"].startswith("blob_")}
+    emit(blob)
+    failed = [k for k, v in blob["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"blob checks failed: {failed}")
+
+    # -- 13. the sharded step: 8 ranks over torch.distributed ----------------
     # Built above, in this process: the ranks find the libraries and run
     # no nvcc. Every rank runs A and B on its own block; the collectives
     # go through gloo, which stages CUDA buffers through host memory and
@@ -1429,7 +1741,7 @@ def main() -> int:
     if sh_bad:
         raise AssertionError(f"sharded step checks failed: {sh_bad}")
 
-    # -- 13. the kernels' record --------------------------------------------
+    # -- 14. the kernels' record --------------------------------------------
     gf_main, crc_main = gf_results[0], crc_results[0]
     bm_main, probe_main = (next(x for x in bm_results
                                 if (x["case"], x["extract"], x["probe"], x["grid"]) == key)
@@ -1439,6 +1751,7 @@ def main() -> int:
          "replaces": "cubefs_tpu/ops/pallas_gf.py:46", "shape": gf_main["case"],
          "launches": launches["gf_apply"], "service_launches": svc_launches["gf_apply"],
          "engines_launches": eng_phase["launches"]["gf_apply"],
+         "blob_launches": blob["launches"]["gf_apply"],
          "equal": gf_main["equal"],
          "max_abs_err": gf_main["max_abs_err"], "ms": gf_main["ms"],
          "device_ms": gf_main["device_ms"], "plain_ms": gf_main["plain_ms"],

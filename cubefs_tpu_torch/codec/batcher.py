@@ -41,8 +41,10 @@ coalesce per geometry the same way; their step runs on the leg the
 engine module routes it to (``engine.dispatch``: ``auto`` picks the
 leg by the coalesced step's bytes, ``engine.policy_leg``, then the XOR
 door and the ``CUBEFS_CODEC_DEAD`` drill apply), and a step on the
-``cuda`` leg copies in and out through ``hostio`` once. Results come
-back as numpy, or in the submission's ``out=`` rows. The step counter
+``cuda`` leg is ``hostio.staged``: one copy of the step's stack in and
+one of its result out, straight into the submission's ``out=`` rows
+where a one-submission step has them. Results come back as numpy, or
+in the submission's ``out=`` rows. The step counter
 is labelled with the leg that served.
 
 The reference also splits drained steps over a device mesh and retries
@@ -52,7 +54,10 @@ failure goes to the step's futures.
 Counters (``utils/metrics.py``, where the reference increments them):
 stripes admitted per swap, device steps per engine call, stripes per
 step, each submission's wait for its step, submitters that met
-backpressure, and submissions rejected alone.
+backpressure, and submissions rejected alone. Tracing (``utils/trace.py``):
+each submission captures its caller's span; each step opens one
+``stage:codec_step`` span that follows from them (tags ``stage``, ``op``,
+``stripes``) and observes the ``codec_step`` stage.
 
 Knobs (environment, read at construction):
   CUBEFS_CODEC_BATCH=0        submissions call the engine directly
@@ -73,6 +78,7 @@ import torch
 
 from .. import device as devlib
 from ..utils import metrics
+from ..utils import trace as tracelib
 from . import engine as engines
 from .engine import CudaEngine
 
@@ -94,7 +100,7 @@ class CodecFuture:
     by the time it is collected."""
 
     __slots__ = ("arr", "out", "stripes", "value", "exc", "done", "event", "stream",
-                 "finished", "enq_t", "_batcher", "_key")
+                 "finished", "enq_t", "ref", "_batcher", "_key")
 
     def __init__(self, batcher: "BatchCodec", key: tuple, arr: torch.Tensor,
                  out: torch.Tensor | None):
@@ -110,6 +116,10 @@ class CodecFuture:
         self.stream: torch.cuda.Stream | None = None
         self.finished: torch.cuda.Event | None = None
         self.enq_t = time.perf_counter()
+        # span handoff: the drainer runs in ONE submitter's context;
+        # every other submitter's span survives only through this ref,
+        # which the drain span records as a follows-from link
+        self.ref = tracelib.capture()
         self._batcher = batcher
         self._key = key
 
@@ -437,27 +447,41 @@ class BatchCodec:
         return steps
 
     def _one_step(self, key: tuple, q: _GeometryQueue, step: list[CodecFuture]) -> None:
-        now = time.perf_counter()
-        metrics.codec_batch_wait.observe_many([now - s.enq_t for s in step], op=key[0])
+        """Run one step and resolve each of its submissions, with its
+        result or with the step's error."""
+        op = key[0]
         try:
             others = self._join_streams(key, step)
-            if len(step) == 1:  # the caller's own stripes, no copy
-                sub = step[0]
-                out = self._engine_call(key, q.engine, q.coeff, sub.arr, sub.out)
-                results = [out]
-            else:
-                cat = (torch.cat if key[5] == "cuda" else np.concatenate)
-                out = self._engine_call(key, q.engine, q.coeff, cat([s.arr for s in step]), None)
-                results, off = [], 0
-                for sub in step:
-                    end = off + sub.stripes
-                    v = out[off:end]
-                    results.append(v if sub.out is None else _copy_into(sub.out, v))
-                    off = end
+            one = len(step) == 1  # the caller's own stripes and rows, no copy
+            arr = step[0].arr if one else (torch.cat if key[5] == "cuda" else np.concatenate)(
+                [s.arr for s in step])
+            now = time.perf_counter()
+            metrics.codec_batch_wait.observe_many([now - s.enq_t for s in step], op=op)
+            # one drain-step span around the engine call, following from
+            # every submitter's captured context (the drainer's own span is
+            # the parent)
+            span = tracelib.start_span("stage:codec_step",
+                                       links=[s.ref for s in step if s.ref is not None])
+            span.set_tag("stage", "codec_step").set_tag("op", op)
+            span.set_tag("stripes", int(arr.shape[0]))
+            with span:
+                try:
+                    out = self._engine_call(key, q.engine, q.coeff, arr,
+                                            step[0].out if one else None)
+                except Exception as e:  # the step's failure goes to its submissions
+                    for sub in step:
+                        sub.resolve(None, e)
+                    return
+            tracelib.observe_stage("codec_step", span.path, time.perf_counter() - now)
+            metrics.codec_batch_stripes.observe(int(arr.shape[0]), op=op)
+            results, off = [], 0
+            for sub in step:
+                v = out if one else out[off:off + sub.stripes]
+                results.append(v if one or sub.out is None else _copy_into(sub.out, v))
+                off += sub.stripes
             if others:
                 self._hand_back(key, step, others, out)
-            metrics.codec_batch_stripes.observe(sum(s.stripes for s in step), op=key[0])
-        except Exception as e:  # the step's failure goes to its submissions
+        except Exception as e:
             for sub in step:
                 sub.resolve(None, e)
             return
@@ -511,9 +535,7 @@ class BatchCodec:
             name = engines.policy_leg(int(arr.nbytes), dev) if engine == "auto" else engine
             args = (arr, key[3]) if op == "encode" else (coeff, arr)
             y, served = engines.dispatch(name, "encode_parity" if op == "encode"
-                                         else "matrix_apply", dev, *args)
-            if out is not None:
-                y = _copy_into(out, y)
+                                         else "matrix_apply", dev, *args, out=out)
         metrics.codec_batch_steps.inc(op=op, engine=served)
         return y
 

@@ -17,8 +17,8 @@ Engines (``get_engine(name, device)``):
   * ``auto``: each call goes to the leg the crossover table names for the
     stripes' size.
 The host engines and ``auto`` take numpy (or CPU tensors) and return
-numpy. ``auto``'s ``cuda`` leg copies in and out through
-``codec/hostio.py``, so its time counts the copies.
+numpy. ``auto``'s ``cuda`` leg is ``hostio.staged`` (one copy in, one
+out), so its time counts the copies.
 
 Routing (``auto``, and the batcher's steps of host-resident stripes):
   * The crossover table: ``measure_crossover`` times RS(6+3) single
@@ -219,21 +219,26 @@ def get_engine(name: str | None = None, device: str | torch.device | None = None
     return eng
 
 
-def host_call(name: str, method: str, device, *args) -> np.ndarray:
-    """Run leg ``name`` on host stripes and return numpy. The ``cuda`` leg
-    copies the stripes in through ``hostio``, applies kernel A (or the
-    plain version on ``device="cpu"``) and copies the result out."""
+def host_call(name: str, method: str, device, *args, out: np.ndarray | None = None
+              ) -> np.ndarray:
+    """Run leg ``name`` on host stripes and return numpy, written into
+    ``out`` if given. The ``cuda`` leg is ``hostio.staged``: the stripes
+    copied in once, kernel A (or the plain version on ``device="cpu"``),
+    the result copied out once."""
     if name != "cuda":
-        return getattr(get_engine(name), method)(*args)
+        y = getattr(get_engine(name), method)(*args)
+        if out is None:
+            return y
+        np.copyto(out, y)
+        return out
     eng = CudaEngine(device)
     if method == "matrix_apply":
         coeff, x = args
-    else:
-        x, n_parity = args
-    x = np.ascontiguousarray(_host(x), dtype=np.uint8)
-    xd = hostio.to_device(x, x.shape, eng.device)
-    y = eng.matrix_apply(coeff, xd) if method == "matrix_apply" else eng.encode_parity(xd, n_parity)
-    return hostio.to_host(y).numpy()
+        return hostio.staged(np.asarray(_host(x), dtype=np.uint8), eng.device,
+                             lambda xd: eng.matrix_apply(coeff, xd), out)
+    x, n_parity = args
+    return hostio.staged(np.asarray(_host(x), dtype=np.uint8), eng.device,
+                         lambda xd: eng.encode_parity(xd, n_parity), out)
 
 
 # ---------------- measured size-class crossover ----------------
@@ -425,13 +430,15 @@ def route(name: str) -> str:
     return leg
 
 
-def dispatch(name: str, method: str, device, *args) -> tuple[np.ndarray, str]:
-    """A routed call of ``method`` on host stripes: (numpy result, the leg
-    that served). An error of the leg raises to the caller."""
+def dispatch(name: str, method: str, device, *args, out: np.ndarray | None = None
+             ) -> tuple[np.ndarray, str]:
+    """A routed call of ``method`` on host stripes: (numpy result, written
+    into ``out`` if given; the leg that served). An error of the leg
+    raises to the caller."""
     leg = route(name)
-    out = host_call(leg, method, device, *args)
+    y = host_call(leg, method, device, *args, out=out)
     last_dispatch.update(method=method, requested=name, served=leg)
-    return out, leg
+    return y, leg
 
 
 def policy_leg(nbytes: int, device=None) -> str:

@@ -3,8 +3,10 @@ adaptor of the codec's host-facing callers.
 
 The reference hands numpy arrays to its engines. The port's engines take
 tensors on their device, so a caller that holds bytes (an RPC body), a
-memoryview or a ``np.memmap`` slice (a ``/dev/shm`` file) copies them
-in with ``to_device`` and the results out with ``to_host``.
+memoryview, a numpy array or a ``np.memmap`` slice (a ``/dev/shm`` file)
+copies them in with ``to_device`` and the results out with ``to_host``.
+``staged`` is the card's leg over a host stack, the one path from host
+stripes to kernel A: one copy in, the work, one copy of the result out.
 
 - Neither function aliases its source: ``np.frombuffer`` over a request
   body is read-only, and the engines write their outputs in place.
@@ -49,9 +51,12 @@ def _stage(nbytes: int, pinned: bool) -> torch.Tensor:
 
 def to_device(buf, shape: tuple[int, ...], device: torch.device) -> torch.Tensor:
     """A new uint8 tensor of ``shape`` on ``device`` holding the bytes of
-    ``buf`` (bytes, a memoryview or a contiguous numpy array or memmap
-    slice), copied through the thread's staging tensor."""
-    src = np.frombuffer(buf, dtype=np.uint8)
+    ``buf`` (bytes, a memoryview, or a uint8 numpy array or memmap slice
+    of any strides, read in C order), copied through the thread's staging
+    tensor."""
+    src = buf if isinstance(buf, np.ndarray) else np.frombuffer(buf, dtype=np.uint8)
+    if src.dtype != np.uint8:
+        raise ValueError(f"a host buffer must hold uint8, got {src.dtype}")
     if src.size != int(np.prod(shape)):
         raise ValueError(f"{src.size} bytes do not fill a {tuple(shape)} uint8 tensor")
     device = torch.device(device)
@@ -59,7 +64,7 @@ def to_device(buf, shape: tuple[int, ...], device: torch.device) -> torch.Tensor
     if not src.size:
         return out
     stage = _stage(src.size, pinned=device.type == "cuda")
-    np.copyto(stage.numpy(), src)
+    np.copyto(stage.numpy().reshape(src.shape), src)
     out.view(-1).copy_(stage, non_blocking=True)
     if device.type == "cuda":
         ev = torch.cuda.Event()
@@ -91,3 +96,14 @@ def to_host(t: torch.Tensor, out: np.ndarray | None = None):
         return host
     np.copyto(out, host.numpy().reshape(out.shape))
     return out
+
+
+def staged(x: np.ndarray, device, fn, out: np.ndarray | None = None) -> np.ndarray:
+    """``fn`` run on the device over a host stack: ``x`` (a uint8 array of
+    any strides) copied to ``device`` in one copy, and the uint8 tensor
+    ``fn`` returns copied back in one copy into ``out`` (a writable array
+    of its size, any strides), or into a new host tensor of its shape,
+    returned as an array (pinned for a card: PyTorch's caching host
+    allocator hands it out without the page faults of fresh memory)."""
+    y = fn(to_device(x, x.shape, device))
+    return to_host(y).numpy() if out is None else to_host(y, out=out)

@@ -133,6 +133,41 @@ def build(names=None) -> dict[str, float]:
     return secs
 
 
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+
+
+def host_lib_path(stem: str, sources, flags=HOST_FLAGS, build_dir: str = BUILD_DIR) -> str:
+    """Where the host library ``stem`` built from ``sources`` (with every
+    header beside them) lives: named by a hash of the flags and the
+    sources, so an edit rebuilds and an unchanged tree reuses it."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    dirs = sorted({os.path.dirname(s) for s in sources})
+    headers = [os.path.join(d, f) for d in dirs for f in sorted(os.listdir(d))
+               if f.endswith(".h")]
+    for path in [*sources, *headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(build_dir, f"lib{stem}-{h.hexdigest()[:16]}.so")
+
+
+def build_host(out: str, sources, what: str, flags=HOST_FLAGS) -> str:
+    """Compile host C++ ``sources`` with g++ into the shared library
+    ``out`` unless it is there; returns ``out``. Processes and threads
+    that build at once each write a file of their own and move it into
+    place with ``os.replace``. A failed build raises with g++'s output."""
+    if os.path.exists(out):
+        return out
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    proc = subprocess.run([os.environ.get("CXX", "g++"), *flags, "-o", tmp, *sources],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"{what} build failed: g++ exited {proc.returncode}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of a kernel's source, built first if missing."""
     _launcher(name)

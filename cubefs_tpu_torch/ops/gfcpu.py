@@ -3,52 +3,30 @@
 ``csrc/host/gfcpu.cc`` holds the host codec legs' native code: ``gf_apply``
 (the ``cpp`` engine), ``xor_apply`` (the ``cpp-xor`` engine, replaying
 ``ops/xorprog.py`` schedules) and ``gf_cpu_level``. It is compiled at
-first use into ``cubefs_tpu_torch/_build/``, named by a hash of the source
-and the flags, so an edit rebuilds and an unchanged tree reuses the
-library. Processes that build at once (test workers) each write a file
-of their own and move it into place with ``os.replace``. A failed build
-raises with g++'s output.
+first use into ``cubefs_tpu_torch/_build/`` by ``_build.build_host``,
+under the name ``_build.host_lib_path`` gives it. A failed build raises
+with g++'s output.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
 
-from ._build import BUILD_DIR, SRC_DIR
+from ._build import BUILD_DIR, SRC_DIR, build_host, host_lib_path
 
 SOURCE = os.path.join(SRC_DIR, "host", "gfcpu.cc")
-CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _U64, _P = ctypes.c_uint64, ctypes.c_void_p
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
-def lib_path() -> str:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libgfcpu-{h.hexdigest()[:16]}.so")
-
-
 def build() -> str:
     """Compile the library unless it is there; returns its path."""
-    out = lib_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    proc = subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"host GF library build failed: g++ exited {proc.returncode}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return build_host(host_lib_path("gfcpu", [SOURCE], build_dir=BUILD_DIR), [SOURCE],
+                      "host GF library")
 
 
 def load() -> ctypes.CDLL:

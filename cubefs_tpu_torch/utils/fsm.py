@@ -1,0 +1,348 @@
+"""ReplicatedFsm: the shared persistence door for metadata services.
+
+The blob clustermgr (and, in the reference, the FS master) is a state
+machine with one discipline (role parity: the reference backs it with
+raft + RocksDB): every mutation is a record through ONE commit door,
+persisted to a wal, with snapshot/restore built from a single
+serialized-state shape. This mixin is that door.
+
+Host class contract:
+  * `_state_dict() -> dict` / `_load_state_dict(dict)` — full FSM state
+  * `_apply(record: dict) -> result` — deterministic, takes its own lock
+Provided:
+  * `_init_fsm(group_id, data_dir, me, peers, node_pool)`
+  * `_commit(record)` — wal-append, atomic with apply. A record carrying
+    an `op_id` is applied at most once: duplicates (transport retries)
+    get the first outcome replayed from a bounded cache
+  * `_apply_deduped(record)` — the op_id-aware apply door (wal replay
+    routes through it too)
+  * `is_leader` / `leader_addr` / `_leader_gate`
+  * `snapshot()` — wal rotation
+
+The port's copy of ``cubefs_tpu/utils/fsm.py`` for a single member: the
+state file (``snapshot.json``) and the wal (``wal.jsonl``) under
+``data_dir`` have the reference's format, so either package opens what
+the other wrote. Waiting for later slices: the raft-replicated mode
+(more than one peer), geo-replication and the segmented snapshots.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import zlib
+
+from . import lockwitness, metrics, rpc
+
+
+class WalCorruptError(Exception):
+    """A WAL record in the MIDDLE of the log failed its CRC/length
+    check. Unlike a torn tail (the expected crash artifact — the last
+    record never fully hit the platter, so replay truncates it), a bad
+    record with VALID records after it means the medium lied: replaying
+    past it would silently diverge this replica, so replay refuses.
+    Recovery: re-snapshot from a healthy peer (raft hosts get this for
+    free via InstallSnapshot; standalone hosts feed a peer's
+    `_state_bytes()` to `fsm_recover_from_state`)."""
+
+
+class SnapshotCorruptError(WalCorruptError):
+    """The snapshot file's whole-file digest does not match its payload
+    — same refusal/recovery contract as a corrupt-middle WAL record."""
+
+
+def _frame(payload: str) -> str:
+    """One framed WAL line: `!<crc32:08x><len:08x>|<json>`. The CRC is
+    over the json payload bytes; the length disambiguates a torn write
+    that happens to end on a newline. Legacy bare-JSON lines (pre-CRC
+    WALs) still replay."""
+    raw = payload.encode()
+    return f"!{zlib.crc32(raw):08x}{len(raw):08x}|{payload}\n"
+
+
+def _parse_frame(line: bytes) -> dict:
+    """Decode one WAL line (framed or legacy); raises ValueError on any
+    framing/CRC/JSON failure."""
+    if line.startswith(b"!"):
+        if len(line) < 18 or line[17:18] != b"|":
+            raise ValueError("truncated frame header")
+        crc = int(line[1:9], 16)
+        length = int(line[9:17], 16)
+        payload = line[18:]
+        if len(payload) != length:
+            raise ValueError(
+                f"frame length {len(payload)} != header {length}")
+        if zlib.crc32(payload) != crc:
+            raise ValueError("frame crc mismatch")
+        return json.loads(payload)
+    return json.loads(line)
+
+
+def frame_records(records: list[dict]) -> bytes:
+    """Serialize a record list into the CRC-framed WAL wire form, one
+    `!<crc><len>|<json>` line per record. This is the range-scoped
+    snapshot/delta encoding for live metapartition migration
+    (fs/split.py): each record is independently checksummed, so a
+    corrupt chunk in a shipped range snapshot is detected per record,
+    not just by the whole-payload CRC."""
+    return "".join(
+        _frame(json.dumps(r, sort_keys=True)) for r in records
+    ).encode()
+
+
+def parse_records(data: bytes) -> list[dict]:
+    """Decode a `frame_records` payload, verifying every record's CRC.
+    Raises ValueError on any framing/CRC/JSON failure — a range
+    migration must refuse a torn or corrupt snapshot outright rather
+    than load a prefix."""
+    out: list[dict] = []
+    for line in data.split(b"\n"):
+        if line:
+            out.append(_parse_frame(line))
+    return out
+
+
+class ReplicatedFsm:
+    REDIRECT = 421
+
+    def _init_fsm(self, group_id: str, data_dir: str | None,
+                  me: str | None, peers: list[str] | None, node_pool) -> None:
+        self._fsm_data_dir = data_dir
+        self._wal = None
+        # apply+wal-append atomicity
+        self._wal_lock = lockwitness.make_lock("ReplicatedFsm._wal_lock")
+        # serializes decide+commit: the raft propose (and, in the
+        # master's volume create, the planned partition-create RPCs)
+        # deliberately runs UNDER it so the duplicate-check stays atomic
+        # with the commit — only concurrent proposers queue here, never
+        # readers, so the witness's held-across-RPC rule is waived.
+        self._propose_lock = lockwitness.make_lock(
+            "ReplicatedFsm._propose_lock",
+            allow_block="propose serialization spans the commit "
+                        "RPC/raft round by design")
+        self._fsm_op_cache: dict[str, tuple] = {}  # op_id -> (result, exc)
+        self.raft = None  # the replicated mode waits for the port's raft
+        self.extra_routes: dict = {}
+        if peers and len(peers) > 1:
+            raise NotImplementedError(
+                f"{group_id}: a replicated FSM ({len(peers)} peers) needs raft, "
+                "which the port does not have yet; run a single member")
+        if data_dir:
+            os.makedirs(data_dir, exist_ok=True)
+            self._fsm_load()
+            self._wal = open(self._wal_path(), "a")
+
+    # ---------------- roles ----------------
+    def is_leader(self) -> bool:
+        return self.raft is None or self.raft.status()["role"] == "leader"
+
+    def leader_addr(self) -> str | None:
+        return None if self.raft is None else self.raft.status()["leader"]
+
+    def _leader_gate(self) -> None:
+        """Replicated mode serves reads and accepts writes on the leader
+        only (followers apply asynchronously — serving them would return
+        stale maps right after a commit)."""
+        if self.raft is not None and not self.is_leader():
+            raise rpc.RpcError(self.REDIRECT,
+                               f"leader={self.leader_addr() or ''}")
+
+    # ---------------- commit door ----------------
+    FSM_OP_CACHE_SIZE = 4096
+
+    def _apply_deduped(self, record: dict):
+        """Apply with at-most-once semantics: a record carrying an
+        `op_id` is applied once and its outcome (result or error)
+        replayed to transport-level retries — the rpc layer re-sends a
+        request whose response was lost on a stale connection, and
+        id-minting ops (alloc_*, register_disk) must not mint twice.
+        The cache is rebuilt from the same record stream on wal/raft
+        replay, so replicas and restarts agree. `op_id` is a transport
+        concern and is stripped before the host `_apply` sees the
+        record.
+
+        A `__batch__` record carries an ordered batch of records
+        coalesced into one raft entry (see `_commit_many`): each
+        constituent applies in sequence through this same door — per-op
+        op_id dedup intact, so batch boundaries are invisible to replay
+        and transport retries — and the batch's FSM result is the
+        per-op outcome list [[result, None] | [None, [code, msg]]]."""
+        if record.get("op") == "__batch__":
+            outs = []
+            for sub in record["records"]:
+                try:
+                    outs.append([self._apply_deduped(sub), None])
+                except Exception as e:
+                    outs.append([None, [getattr(e, "code", 500), str(e)]])
+            return outs
+        op_id = record.get("op_id")
+        if op_id is None:
+            return self._apply(record)
+        if op_id in self._fsm_op_cache:
+            result, exc = self._fsm_op_cache[op_id]
+            if exc is not None:
+                raise exc
+            return result
+        rec = {k: v for k, v in record.items() if k != "op_id"}
+        try:
+            result = self._apply(rec)
+        except Exception as e:
+            self._fsm_remember(op_id, (None, e))
+            raise
+        self._fsm_remember(op_id, (result, None))
+        return result
+
+    def _fsm_remember(self, op_id: str, outcome: tuple) -> None:
+        self._fsm_op_cache[op_id] = outcome
+        if len(self._fsm_op_cache) > self.FSM_OP_CACHE_SIZE:
+            # drop oldest half (insertion-ordered dict)
+            for k in list(self._fsm_op_cache)[: self.FSM_OP_CACHE_SIZE // 2]:
+                del self._fsm_op_cache[k]
+
+    def _commit(self, record: dict):
+        # apply and wal-append must be one atomic step, else concurrent
+        # commits can log in a different order than they applied and
+        # replay to a different state
+        with self._wal_lock:
+            out = self._apply_deduped(dict(record))
+            if self._wal is not None:
+                self._wal.write(_frame(json.dumps(record)))
+                self._wal.flush()
+        return out
+
+    def _commit_many(self, records: list[dict]) -> list:
+        """Batch commit door: ONE raft entry (or one wal-lock round in
+        standalone mode) carries an ordered batch of records, with
+        per-op outcomes [[result, None] | [None, [code, msg]], ...]
+        fanned back in order. The wal still records constituents as
+        individual lines — a batch entry replays as its constituent
+        records, so the replay contract is unchanged."""
+        with self._wal_lock:
+            outs = self._apply_deduped(
+                {"op": "__batch__", "records": [dict(r) for r in records]})
+            # only constituents that APPLIED are logged — the single-op
+            # door's contract: wal replay assumes every record
+            # re-applies cleanly
+            ok = [r for r, (res, err) in zip(records, outs) if err is None]
+            if self._wal is not None and ok:
+                self._wal.write("".join(_frame(json.dumps(r)) for r in ok))
+                self._wal.flush()
+        return outs
+
+    # ---------------- persistence ----------------
+    def _wal_path(self) -> str:
+        return os.path.join(self._fsm_data_dir, "wal.jsonl")
+
+    def _snap_path(self) -> str:
+        return os.path.join(self._fsm_data_dir, "snapshot.json")
+
+    def _state_bytes(self) -> bytes:
+        return json.dumps(self._state_dict()).encode()
+
+    def _restore_bytes(self, data: bytes) -> None:
+        self._load_state_dict(json.loads(data))
+
+    def _fsm_load(self) -> None:
+        if os.path.exists(self._snap_path()):
+            self._load_state_dict(self._read_snapshot())
+        if os.path.exists(self._wal_path()):
+            self._replay_wal()
+
+    def _read_snapshot(self) -> dict:
+        doc = json.load(open(self._snap_path()))
+        if isinstance(doc, dict) and doc.get("__wal_snap__") == 2:
+            # digest-carrying envelope: crc32 over the serialized state
+            payload = doc["payload"]
+            if zlib.crc32(payload.encode()) != doc["crc"]:
+                metrics.integrity_corruptions_detected.inc(
+                    plane="wal", source="replay")
+                raise SnapshotCorruptError(
+                    f"{self._snap_path()}: snapshot digest mismatch")
+            return json.loads(payload)
+        return doc  # legacy digest-less snapshot
+
+    def _replay_wal(self) -> None:
+        """Replay the op WAL with per-record CRC verification. The whole
+        file is VALIDATED before anything applies, so a corrupt-middle
+        refusal leaves the FSM state untouched for peer recovery."""
+        path = self._wal_path()
+        with open(path, "rb") as f:
+            raw = f.read()
+        records: list[dict] = []
+        offset = 0
+        bad_at: int | None = None  # byte offset of the first bad record
+        corrupt_middle = False
+        for line in raw.split(b"\n"):
+            if line:
+                if bad_at is None:
+                    try:
+                        records.append(_parse_frame(line))
+                    except (ValueError, json.JSONDecodeError):
+                        bad_at = offset
+                else:
+                    try:
+                        _parse_frame(line)
+                    except (ValueError, json.JSONDecodeError):
+                        pass  # trailing garbage keeps the tear a tear
+                    else:
+                        corrupt_middle = True  # valid record AFTER the bad one
+                        break
+            offset += len(line) + 1
+        if corrupt_middle:
+            metrics.integrity_corruptions_detected.inc(
+                plane="wal", source="replay")
+            raise WalCorruptError(
+                f"{path}: corrupt record at byte {bad_at} with valid "
+                f"records after it — refusing replay (re-snapshot from "
+                f"a healthy peer)")
+        if bad_at is not None:
+            # torn tail: the crash artifact the framing exists to make
+            # provably-safe to drop. Truncate so the append stream never
+            # concatenates onto half a record.
+            with open(path, "r+b") as f:
+                f.truncate(bad_at)
+            metrics.wal_torn_tail.inc()
+        for rec in records:
+            self._apply_deduped(rec)
+
+    def fsm_recover_from_state(self, data: bytes) -> None:
+        """Corrupt-middle recovery door: replace this host's state with
+        a healthy peer's `_state_bytes()` (the raft InstallSnapshot
+        payload shape), discard the poisoned WAL, and persist a fresh
+        digest-carrying snapshot. The op_id cache resets with the state
+        — exactly what a raft InstallSnapshot does on a lagging
+        follower."""
+        with self._wal_lock:
+            self._fsm_op_cache.clear()
+            self._restore_bytes(data)
+            if self._wal is not None:
+                self._wal.close()
+            open(self._wal_path(), "w").close()
+            self._wal = open(self._wal_path(), "a")
+        self.snapshot()
+
+    def snapshot(self) -> int:
+        """Persist state and rotate the wal. Returns 0 (the number of
+        segments written: the port keeps full-state snapshots only)."""
+        if not self._fsm_data_dir:
+            return 0
+        with self._wal_lock:
+            tmp = self._snap_path() + ".tmp"
+            payload = json.dumps(self._state_dict())
+            with open(tmp, "w") as f:
+                # whole-file digest envelope: a flipped bit anywhere in
+                # the state payload refuses the load instead of silently
+                # restoring corrupt metadata
+                json.dump({"__wal_snap__": 2,
+                           "crc": zlib.crc32(payload.encode()),
+                           "payload": payload}, f)
+            os.replace(tmp, self._snap_path())
+            if self._wal is not None:
+                self._wal.close()
+            open(self._wal_path(), "w").close()
+            self._wal = open(self._wal_path(), "a")
+            return 0
+
+    def fsm_stop(self) -> None:
+        """Nothing runs beside a single member (the replicated mode
+        stops its raft node here)."""

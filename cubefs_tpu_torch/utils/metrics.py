@@ -4,9 +4,11 @@ The port's trimmed copy of ``cubefs_tpu/utils/metrics.py``: the
 registry, its three metric types and the families of the codec plane
 under the reference's names, labels and buckets (the RPC transport,
 ``codec_bytes``, the batcher's ``codec_batch_*`` and the rows cache's
-``codec_program_cache*``). Any RPC server mounts ``render_text()`` at
-``GET /metrics``. Left out: the dp-split family (the port's batcher has
-no dp split), the file-system and blob families and the SLO hooks.
+``codec_program_cache*``), and those of the blob plane and its
+utilities (repair, placement, QoS, SLO, tracing, integrity, disk
+health). Any RPC server mounts ``render_text()`` at ``GET /metrics``.
+Left out: the dp-split family (the port's batcher has no dp split) and
+the file-system, raft and geo-replication families.
 
 Added here: ``cubefs_codec_kernel_launches_total``, the launches of each
 CUDA kernel, counted where ``ops/_build.launch`` counts them.
@@ -192,3 +194,134 @@ codec_program_cache_entries = DEFAULT.gauge(
 kernel_launches = DEFAULT.counter(
     "cubefs_codec_kernel_launches_total",
     "CUDA kernel launches by kernel", ("kernel",))
+
+# the blob plane and its utilities (cubefs_tpu_torch/blob, utils/)
+repair_tasks = DEFAULT.counter("cubefs_repair_tasks_total",
+                               "repair tasks", ("state",))
+rpc_client_retries = DEFAULT.counter(
+    "cubefs_rpc_client_retries_total",
+    "client-side RPC retries taken through RetryPolicy", ("op", "reason"))
+breaker_state = DEFAULT.gauge(
+    "cubefs_breaker_state",
+    "per-address circuit breaker state (0=closed, 1=half-open, 2=open)",
+    ("addr",))
+breaker_skips = DEFAULT.counter(
+    "cubefs_breaker_skips_total",
+    "calls skipped because the address's breaker was open", ("addr",))
+placement_az_skew = DEFAULT.gauge(
+    "cubefs_placement_az_skew",
+    "volume-unit count spread across AZs (max - min), set by the "
+    "rebalance sweep's scoring pass")
+placement_misplaced = DEFAULT.gauge(
+    "cubefs_placement_misplaced_units",
+    "volume units living outside their local stripe's home AZ; zero "
+    "means every LRC stripe is physically AZ-local")
+placement_colocated = DEFAULT.counter(
+    "cubefs_placement_colocated_total",
+    "volume allocations that degraded the failure-domain contract "
+    "under allow_colocated_units", ("kind",))
+rebalance_moves = DEFAULT.counter(
+    "cubefs_rebalance_moves_total",
+    "unit migrations queued by the rebalance sweep", ("reason",))
+reconstruct_reads = DEFAULT.counter(
+    "cubefs_reconstruct_total",
+    "degraded-read reconstructions by stripe scope (local = intra-AZ "
+    "LRC stripe, global = full-width RS)", ("path",))
+repair_codec_leg = DEFAULT.counter(
+    "cubefs_repair_codec_leg_total",
+    "repair decode dispatches by the engine leg that served them "
+    "(post-fallback, post-XOR-door)", ("leg",))
+repair_bytes_pulled = DEFAULT.counter(
+    "cubefs_repair_bytes_pulled_total",
+    "bytes downloaded from survivors by repair (full shards on the "
+    "conventional path, beta-sized helper symbols on the MSR path)",
+    ("scope",))
+repair_subshard_reads = DEFAULT.counter(
+    "cubefs_repair_subshard_reads_total",
+    "beta-sized helper symbols served through read_subshard (one per "
+    "bid per helper)")
+repair_msr_fallbacks = DEFAULT.counter(
+    "cubefs_repair_msr_fallback_total",
+    "MSR repairs that fell back to the conventional k-shard decode",
+    ("reason",))
+request_stage_seconds = DEFAULT.histogram(
+    "cubefs_request_stage_seconds",
+    "per-stage latency of instrumented hot-path requests",
+    ("path", "stage"),
+    buckets=(0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+             0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30, 60))
+slo_latency_quantile = DEFAULT.gauge(
+    "cubefs_slo_latency_quantile_seconds",
+    "sliding-window latency quantile estimate per instrumented path",
+    ("path", "quantile"))
+slo_burn_rate = DEFAULT.gauge(
+    "cubefs_slo_burn_rate",
+    "error-budget burn rate per path: fraction of windowed requests "
+    "over the SLO target divided by the budget (1-objective); 1.0 "
+    "burns the budget exactly at the objective rate",
+    ("path",))
+slo_budget_remaining = DEFAULT.gauge(
+    "cubefs_slo_error_budget_remaining",
+    "fraction of the window's error budget still unspent (1 = no "
+    "violations, 0 = budget exhausted)",
+    ("path",))
+trace_spans_total = DEFAULT.counter(
+    "cubefs_trace_spans_total",
+    "spans finished into the in-memory collector")
+trace_evictions = DEFAULT.counter(
+    "cubefs_trace_evictions_total",
+    "whole traces evicted from the collector (oldest-root-first)")
+ratelimit_waits = DEFAULT.counter(
+    "cubefs_ratelimit_waits_total",
+    "token-bucket reservations that had to wait for refill", ("limiter",))
+ratelimit_wait_seconds = DEFAULT.histogram(
+    "cubefs_ratelimit_wait_seconds",
+    "per-reservation token-bucket wait (virtual-queue debt / rate)",
+    ("limiter",))
+qos_admitted = DEFAULT.counter(
+    "cubefs_qos_admitted_total",
+    "requests admitted through the QoS gate",
+    ("path", "tenant", "priority"))
+qos_shed = DEFAULT.counter(
+    "cubefs_qos_shed_total",
+    "requests shed (429) at admission: `over_quota` exhausted the "
+    "tenant bucket, `queue_depth` hit the per-priority inflight bound, "
+    "`brownout` was a low-priority class dropped while the path burns "
+    "SLO budget", ("path", "tenant", "reason"))
+qos_throttled = DEFAULT.counter(
+    "cubefs_qos_throttled_total",
+    "admissions shaped (delayed but not shed) by the tenant bucket",
+    ("path", "tenant"))
+qos_throttle_wait = DEFAULT.histogram(
+    "cubefs_qos_throttle_wait_seconds",
+    "admission shaping delay applied by the tenant bucket", ("path",))
+qos_inflight = DEFAULT.gauge(
+    "cubefs_qos_inflight",
+    "requests currently inside the QoS gate, per path", ("path",))
+qos_brownout = DEFAULT.gauge(
+    "cubefs_qos_brownout_level",
+    "burn-rate-driven degradation level per path: 0 healthy, 1 shed "
+    "scrub + suppress flash fills + halve repair steps, 2 shed repair "
+    "too and quarter repair steps", ("path",))
+integrity_corruptions_detected = DEFAULT.counter(
+    "cubefs_integrity_corruptions_detected_total",
+    "at-rest corruptions caught by a CRC check, by plane (fs/blob/wal) "
+    "and source (`read` = foreground verified read, `scrub` = "
+    "background sweep, `replay` = WAL replay)", ("plane", "source"))
+integrity_repair_failures = DEFAULT.counter(
+    "cubefs_integrity_repair_failures_total",
+    "read-repair attempts that could not heal the bad copy (left for "
+    "the scrubber / repair queue)", ("plane",))
+wal_torn_tail = DEFAULT.counter(
+    "cubefs_wal_torn_tail_total",
+    "WAL replays that truncated a torn trailing record (the expected "
+    "crash artifact; corrupt-MIDDLE records refuse replay instead)")
+disk_quarantined = DEFAULT.gauge(
+    "cubefs_disk_quarantine_active",
+    "disks currently quarantined (no new allocations; probe-based "
+    "unquarantine pending)", ("node",))
+disk_quarantine_transitions = DEFAULT.counter(
+    "cubefs_disk_quarantine_transitions_total",
+    "disk health state transitions: `quarantine` (io-error or latency "
+    "outlier tripped), `probe_pass` (probe healed it back), "
+    "`probe_fail` (probe kept it quarantined)", ("node", "event"))

@@ -406,6 +406,71 @@ def test_encode_async_raises_verify_error_at_wait():
         enc.encode_async(st).wait()
 
 
+# ---------------- the step's trace span ----------------
+
+def _step_span_tree(tracelib, metrics, submit) -> dict:
+    """Three submitters, each under a ``blob.put`` root span of its own,
+    park an encode of one geometry; a fourth span collects all three (its
+    first collect drains them as one step). Returns the step spans with
+    every span id replaced by its span's operation, how many
+    ``codec_step`` stage samples the step observed and the errors its
+    submissions got."""
+    stage = metrics.request_stage_seconds
+    before = sum(s["count"] for k, s in stage.samples() if k == ("blob.put", "codec_step"))
+    tracelib.reset_collector()
+    futs, errors = [], []
+    for i in range(3):
+        with tracelib.path_span("blob.put", f"put{i}"):
+            futs.append(submit(i))
+    with tracelib.path_span("blob.put", "collector"):
+        for f in futs:
+            try:
+                f.result()
+            except RuntimeError as e:
+                errors.append(str(e))
+    spans = tracelib.finished_spans()
+    name = {sp["span_id"]: sp["op"] for sp in spans}
+    steps = [{"parent": name.get(sp["parent_id"]), "tags": sp["tags"], "path": sp.get("path"),
+              "follows": sorted(name[f["span_id"]] for f in sp.get("follows", []))}
+             for sp in spans if sp["op"] == "stage:codec_step"]
+    after = sum(s["count"] for k, s in stage.samples() if k == ("blob.put", "codec_step"))
+    return {"steps": steps, "stage_samples": after - before, "errors": errors}
+
+
+@pytest.mark.parametrize("fails", [False, True], ids=["step_ok", "step_fails"])
+def test_coalesced_step_span_tree_equals_the_reference(fails):
+    """The drained step opens one ``stage:codec_step`` span under the
+    collector's span, following from every submitter, tagged with its
+    stage, op and stripe count, and observes the ``codec_step`` stage:
+    the same tree the reference's batcher records for the same script.
+    A failing step fails each submission, tags no error on the span and
+    observes no stage sample, as the reference's does."""
+    from cubefs_tpu.codec import batcher as ref_batcher
+    from cubefs_tpu.utils import metrics as ref_metrics
+    from cubefs_tpu.utils import trace as ref_trace
+    from cubefs_tpu_torch.utils import metrics, trace
+
+    n, m, s = 4, 2, 64
+    data = [np.random.default_rng(i).integers(0, 256, (i + 1, n, s), dtype=np.uint8)
+            for i in range(3)]
+    ref_bc, bc = ref_batcher.BatchCodec(enabled=True), BatchCodec(enabled=True)
+    if fails:
+        def lost(*args):
+            raise RuntimeError("device lost")
+
+        ref_bc._engine_call = bc._engine_call = lost
+    want = _step_span_tree(ref_trace, ref_metrics,
+                           lambda i: ref_bc.submit_encode_async("numpy", data[i], m))
+    got = _step_span_tree(trace, metrics,
+                          lambda i: bc.submit_encode_async("cpu", torch.from_numpy(data[i]), m))
+    assert got == want
+    assert got == {"steps": [{"parent": "collector", "path": "blob.put",
+                              "tags": {"stage": "codec_step", "op": "encode", "stripes": 6},
+                              "follows": ["put0", "put1", "put2"]}],
+                   "stage_samples": 0 if fails else 1,
+                   "errors": ["device lost"] * 3 if fails else []}
+
+
 # ---------------- host engines and auto ----------------
 
 @pytest.fixture
