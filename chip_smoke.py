@@ -44,8 +44,15 @@ x 3 disks PUTs 64 MiB objects under ``auto`` and ``cuda``, reads them
 back healthy and with two disks down, repairs a broken disk through the
 scheduler and the worker and an EC6P6MSR unit through the sub-shard
 path, every byte held against what was written and the parity on disk
-against the plain version. Each phase prints one JSON line; any
-failure, in any rank, raises.
+against the plain version. Then the same plane as its users start it
+(phase ``roles``): the launcher (``cubefs_tpu_torch/deploy/cluster.py``)
+starts a clustermgr, 6 blobnodes x 3 disks, a proxy, access and a
+scheduler, each a ``python -m cubefs_tpu_torch.cmd`` process with its
+audit log; 64 MiB objects go in and out over HTTP, healthy and with one
+blobnode process stopped, kernel A counted from the access process's
+``/metrics``, one PUT's trace read across the processes' ``/spans`` and
+``/traces``. Each phase prints one JSON line; any failure, in any rank,
+raises.
 
 The last lines are the kernels' record, the card's name and power limit
 as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -109,6 +116,7 @@ BLOB_PUT = 64 * MIB  # phase blob: an object of eight 8 MiB blobs, EC12P4 by pol
 BLOB_PUTS = 8  # per engine
 BLOB_MSR = 24 * MIB  # one EC6P6MSR object: three 8 MiB blobs
 BLOB_NODES, BLOB_DISKS = 6, 3  # EC12P4's 16 units and 2 spares
+ROLES_PUTS = 8  # phase roles: 64 MiB objects PUT, read back, read degraded
 # the C and D instantiations the kernels' record reports: (case, extract, probe, grid)
 RECORDED_BM = (("tuning_rows_2x12_B4", "bcast", None, "flat"),
                ("tuning_rows_2x12_B4", "bcast", "nodot", "stripe"))
@@ -524,6 +532,7 @@ def blob_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = BLOB_PUTS,
     workdir = tempfile.mkdtemp(prefix="cubefs-smoke-blob-")
     cases: dict[str, dict] = {}
     nodes: list = []
+    acc: dict = {}
 
     def launches_a() -> int:
         return _build.LAUNCHES["gf_apply"]
@@ -709,6 +718,8 @@ def blob_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = BLOB_PUTS,
             lambda: hostio.to_host(dev_stack[:, t12.n:], out=stack[:, t12.n:]), reps)
         del dev_stack
     finally:
+        for a in acc.values():  # hedged reads outlive a GET: drain them first
+            a._pool.shutdown(wait=True)
         for node in nodes:
             node.stop()
         shutil.rmtree(workdir, ignore_errors=True)
@@ -737,6 +748,209 @@ def blob_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = BLOB_PUTS,
                         "blob_size": blob_size, "put_bytes": put, "puts_per_engine": n_puts,
                         "codemode": cm.CodeMode(loc0.codemode).name, "blob_shard": s_blob},
             "cases": cases, "launches": launches, "checks": checks}
+
+
+def roles_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = ROLES_PUTS,
+                blob_size: int = BLOB, device: str | None = None) -> dict:
+    """Phase ``roles``: the blob plane as its users start it, every role a
+    process of its own (``deploy.Cluster``, ``python -m
+    cubefs_tpu_torch.cmd``), driven only over HTTP: a clustermgr, 6
+    blobnodes x 3 disks, a proxy, access (``ec_engine`` auto, ``blob_size``
+    8 MiB, its proxy) and a scheduler, all with audit logs.
+
+    ``n_puts`` PUTs of ``put`` bytes (EC12P4 by policy), each read back;
+    the parity of two blobs, fetched from the blobnodes, against
+    ``rs_kernel``'s plain version on the CPU; one blobnode process stopped
+    (one that holds no more than M units of any volume) and every object
+    read again. Kernel A's launches in the access process come from its
+    ``/metrics`` before and after each case; one PUT's trace is read from
+    the access and blobnode processes' ``/spans`` and ``/traces``; the
+    access audit log must hold one record, code 200, per call; the
+    scheduler answers ``role`` and ``stats``; every role exits 0 on
+    SIGTERM. ``device`` is the roles' (None: the card). Returns the
+    record with ``checks`` and ``launches`` (the access process's)."""
+    import torch
+
+    from cubefs_tpu_torch.codec import codemode as cm
+    from cubefs_tpu_torch.deploy.cluster import Cluster
+    from cubefs_tpu_torch.ops import rs_kernel
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 11)
+    workdir = tempfile.mkdtemp(prefix="cubefs-smoke-roles-")
+    launch_key = 'cubefs_codec_kernel_launches_total{kernel="gf_apply"}'
+    audit_path = os.path.join(workdir, "audit", "access.audit.log")
+    cases: dict[str, dict] = {}
+
+    def series(addr: str, prefix: str) -> dict[str, float]:
+        return {k: v for k, v in scrape(addr).items() if k.startswith(prefix)}
+
+    def timed(label: str, calls: list, nbytes: int) -> list:
+        """Run each (method, args, body) on access, timing each; the
+        case's record, with A's launches and the encode steps by leg."""
+        m0 = series(acc, "cubefs_codec_")
+        out, ms = [], []
+        for method, args, body in calls:
+            t = time.perf_counter()
+            status, meta, payload = rpc_post(acc, method, args, body)
+            ms.append((time.perf_counter() - t) * 1e3)
+            if status != 200:
+                raise AssertionError(f"{label}: {method} answered {status} {meta}")
+            out.append((meta, payload))
+        m1 = series(acc, "cubefs_codec_")
+        med = statistics.median(ms)
+        cases[label] = {"count": len(calls), "bytes": nbytes, "ms": med,
+                        "ms_min": min(ms), "ms_max": max(ms), "ms_runs": ms,
+                        "gib_s": nbytes / (med / 1e3) / 2**30,
+                        "a_launches": m1.get(launch_key, 0.0) - m0.get(launch_key, 0.0),
+                        "steps": {k.split("{", 1)[1].rstrip("}"): v - m0.get(k, 0.0)
+                                  for k, v in m1.items()
+                                  if k.startswith("cubefs_codec_batch_steps_total")
+                                  and v != m0.get(k, 0.0)}}
+        return out
+
+    def get_json(addr: str, path: str):
+        host, port = addr.rsplit(":", 1)
+        conn = http.client.HTTPConnection(host, int(port), timeout=60)
+        try:
+            conn.request("GET", path)
+            return json.loads(conn.getresponse().read())
+        finally:
+            conn.close()
+
+    def spans(addr: str, tid: str) -> list[dict]:
+        return get_json(addr, f"/spans?trace_id={tid}")
+
+    def audit_records(n: int) -> list[dict]:
+        """The access audit log once it holds ``n`` records (a server
+        writes a call's record after its reply), or after 30 s."""
+        deadline = time.perf_counter() + 30.0
+        while True:
+            with open(audit_path) as f:
+                recs = [json.loads(ln) for ln in f]
+            if len(recs) >= n or time.perf_counter() > deadline:
+                return recs
+            time.sleep(0.01)
+
+    topo = {"blobnodes": BLOB_NODES, "disks_per_blobnode": BLOB_DISKS, "proxy": True,
+            "access": True, "scheduler": True, "ec_engine": "auto", "blob_size": blob_size,
+            "audit_dir": os.path.join(workdir, "audit"), "device": device}
+    c = Cluster(topo, workdir, timeout=300.0)
+    codes = None
+    try:
+        t = time.perf_counter()
+        state = c.up()
+        startup_s = time.perf_counter() - t
+        roles = state["roles"]
+        acc, cmgr, sched = roles["access"][0], roles["clustermgr"][0], roles["scheduler"][0]
+
+        # -- PUTs and GETs over HTTP ------------------------------------------
+        payloads = [rng.integers(0, 256, put, dtype=np.uint8).tobytes() for _ in range(n_puts)]
+        locs = [m["location"] for m, _ in timed("put", [("put", {}, d) for d in payloads], put)]
+        got = timed("get", [("get", {"location": loc}, b"") for loc in locs], put)
+        cases["get"]["equal"] = all(p == d for (_, p), d in zip(got, payloads))
+        mode = cm.CodeMode(locs[0]["codemode"])
+        t12 = cm.tactic(mode)
+
+        # -- each PUT's spans in the access process: where its time goes ------
+        put_tids = [r["trace"] for r in audit_records(2 * n_puts) if r["op"] == "put"]
+        per_put = []
+        for tid in put_tids:
+            dur: dict[str, float] = {}
+            for sp in spans(acc, tid):
+                key = ("rpc:" if sp["parent_id"] is None else "") + sp["op"]
+                dur[key] = dur.get(key, 0.0) + sp["duration"] * 1e3
+            per_put.append(dur)
+        cases["put"]["spans_ms"] = {k: statistics.median(d.get(k, 0.0) for d in per_put)
+                                    for k in sorted({k for d in per_put for k in d})}
+
+        # -- the stitched trace of one PUT ------------------------------------
+        tid = put_tids[0]
+        node_ops = {bn: {sp["op"] for sp in spans(bn, tid)} for bn in roles["blobnode"]}
+        tree = get_json(acc, f"/traces?trace_id={tid}")
+        trace = {"trace_id": tid, "access_ops": sorted({sp["op"] for sp in spans(acc, tid)}),
+                 "blobnodes_with_put_shard": sum("blobnode.put_shard" in o
+                                                 for o in node_ops.values()),
+                 "render_lines": len(tree["render"].splitlines()),
+                 "rendered_access_put": "access.put" in tree["render"],
+                 "listed": tid in get_json(acc, "/traces")["trace_ids"]}
+
+        # -- the parity of two blobs against the plain version on the CPU -----
+        vols = {}
+        for loc in locs:
+            for sl in loc["slices"]:
+                if sl["vid"] not in vols:
+                    vols[sl["vid"]] = rpc_post(cmgr, "get_volume", {"vid": sl["vid"]})[1]["volume"]
+        sl0 = locs[0]["slices"][0]
+        parity_equal = []
+        for bid in (sl0["min_bid"], sl0["min_bid"] + 1):
+            rows = []
+            for u in vols[sl0["vid"]]["units"]:
+                st_, _, shard = rpc_post(u["node_addr"], "get_shard", {
+                    "disk_id": u["disk_id"], "chunk_id": u["chunk_id"], "bid": bid})
+                rows.append(np.frombuffer(shard, np.uint8) if st_ == 200 else None)
+            stripe = np.stack(rows)
+            plain = rs_kernel.encode_parity(torch.from_numpy(stripe[None, :t12.n].copy()),
+                                            t12.m)
+            parity_equal.append(bool(np.array_equal(plain[0].numpy(), stripe[t12.n:])))
+
+        # -- one blobnode process stopped: every object read again ------------
+        def units_on(addr: str) -> dict[int, list[int]]:
+            return {vid: [u["index"] for u in v["units"] if u["node_addr"] == addr]
+                    for vid, v in vols.items()}
+        held = {bn: units_on(bn) for bn in roles["blobnode"]}
+        victim = max((bn for bn in roles["blobnode"]
+                      if max(len(ix) for ix in held[bn].values()) <= t12.m),
+                     key=lambda bn: sum(len(ix) for ix in held[bn].values()))
+        proc = next(p for p in c.procs if p.addr == victim)
+        proc.p.terminate()
+        victim_exit = proc.p.wait(60)
+        lost_data_blobs = sum(sl["count"] for loc in locs for sl in loc["slices"]
+                              if any(i < t12.n for i in held[victim][sl["vid"]]))
+        got = timed("degraded_get", [("get", {"location": loc}, b"") for loc in locs], put)
+        cases["degraded_get"].update({
+            "equal": all(p == d for (_, p), d in zip(got, payloads)),
+            "stopped": proc.name, "stopped_exit": victim_exit,
+            "units_lost": {str(v): ix for v, ix in held[victim].items()},
+            "blobs_lost_a_data_unit": lost_data_blobs})
+
+        # -- the access audit log and the scheduler ----------------------------
+        audit = audit_records(3 * n_puts)
+        audit_counts = {f'{r["op"]} {r["code"]}': 0 for r in audit}
+        for r in audit:
+            audit_counts[f'{r["op"]} {r["code"]}'] += 1
+        sched_role = rpc_post(sched, "role", {})[:2]
+        sched_stats = rpc_post(sched, "stats", {})[0]
+        launches = {"gf_apply": scrape(acc).get(launch_key, 0.0)}
+    finally:
+        codes = c.down()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    k = cases
+    checks = {
+        "put_codemode_ec12p4": mode == cm.CodeMode.EC12P4,
+        "get.equal": k["get"]["equal"],
+        "degraded_get.equal": k["degraded_get"]["equal"],
+        "parity_equals_plain": all(parity_equal),
+        "put_launched_a_each": k["put"]["a_launches"] >= n_puts,
+        "degraded_launched_a_per_lost_blob": lost_data_blobs > 0
+        and k["degraded_get"]["a_launches"] >= lost_data_blobs,
+        "trace_stitched": "access.put" in trace["access_ops"]
+        and trace["blobnodes_with_put_shard"] > 0 and trace["rendered_access_put"]
+        and trace["listed"],
+        "audit_one_200_per_call": audit_counts == {"put 200": n_puts, "get 200": 2 * n_puts},
+        "scheduler_answers": sched_role == (200, {"role": "scheduler"}) and sched_stats == 200,
+        "every_role_exited_0": victim_exit == 0 and all(rc == 0 for rc in codes.values()),
+    }
+    return {"phase": "roles", "card": card, "seconds": time.perf_counter() - t_phase,
+            "startup_s": startup_s,
+            "cluster": {"nodes": BLOB_NODES, "disks_per_node": BLOB_DISKS,
+                        "blob_size": blob_size, "put_bytes": put, "puts": n_puts,
+                        "codemode": mode.name, "blob_shard": -(-blob_size // t12.n),
+                        "roles": {r: len(a) for r, a in roles.items()}},
+            "cases": cases, "trace": trace, "parity_equal": parity_equal,
+            "audit_counts": audit_counts, "exit_codes": codes, "launches": launches,
+            "checks": checks}
 
 
 def main() -> int:
@@ -1718,7 +1932,18 @@ def main() -> int:
     if failed:
         raise AssertionError(f"blob checks failed: {failed}")
 
-    # -- 13. the sharded step: 8 ranks over torch.distributed ----------------
+    # -- 13. the blob roles over HTTP: every role a process of its own --------
+    # The access process builds nothing (phase build did) and reads the
+    # crossover table phase engines measured; its A launches come from its
+    # /metrics. Nothing in this process launches a kernel here.
+    torch.cuda.empty_cache()
+    roles = roles_phase(dev, card)
+    emit(roles)
+    failed = [k for k, v in roles["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"roles checks failed: {failed}")
+
+    # -- 14. the sharded step: 8 ranks over torch.distributed ----------------
     # Built above, in this process: the ranks find the libraries and run
     # no nvcc. Every rank runs A and B on its own block; the collectives
     # go through gloo, which stages CUDA buffers through host memory and
@@ -1741,7 +1966,7 @@ def main() -> int:
     if sh_bad:
         raise AssertionError(f"sharded step checks failed: {sh_bad}")
 
-    # -- 14. the kernels' record --------------------------------------------
+    # -- 15. the kernels' record --------------------------------------------
     gf_main, crc_main = gf_results[0], crc_results[0]
     bm_main, probe_main = (next(x for x in bm_results
                                 if (x["case"], x["extract"], x["probe"], x["grid"]) == key)
@@ -1752,6 +1977,7 @@ def main() -> int:
          "launches": launches["gf_apply"], "service_launches": svc_launches["gf_apply"],
          "engines_launches": eng_phase["launches"]["gf_apply"],
          "blob_launches": blob["launches"]["gf_apply"],
+         "roles_launches": roles["launches"]["gf_apply"],
          "equal": gf_main["equal"],
          "max_abs_err": gf_main["max_abs_err"], "ms": gf_main["ms"],
          "device_ms": gf_main["device_ms"], "plain_ms": gf_main["plain_ms"],

@@ -13,6 +13,8 @@ device sees large contiguous arrays.
 The port's copy of ``cubefs_tpu/blob/access.py``. ``AccessConfig``
 takes a ``device`` beside the engine name: None is the current CUDA
 device (the handler raises without one), ``"cpu"`` the plain versions.
+An engine name of None is the reference's default,
+``CUBEFS_TPU_EC_ENGINE`` or the card (``cuda``).
 Encoders come from ``codecio``: under ``cuda`` a PUT's (B, total, S)
 stack and each degraded stripe cross to the card in one copy each way.
 """
@@ -106,7 +108,7 @@ class AccessHandler:
         with self._lock:
             if mode not in self._encoders:
                 self._encoders[mode] = codecio.encoder(
-                    mode, self.device, self.cfg.engine or "auto")
+                    mode, self.device, self.cfg.engine)
             return self._encoders[mode]
 
     # ------------------------------ PUT ------------------------------

@@ -8,10 +8,14 @@ pluggable so a consensus layer can replicate the apply stream.
 
 The port's copy of ``cubefs_tpu/blob/clustermgr.py``: disks, volumes,
 chunk ids, bid scopes, unit repointing, config and kv, persisted in the
-reference's state and wal format. The shardnode catalog (spaces and
-shard routes) waits for the port's shardnode; its state (``spaces``,
-the next shard id) is still carried through snapshots, so state the
-reference wrote round-trips.
+reference's state and wal format. The shardnode catalog's state
+(``spaces``, the next shard id) is carried through snapshots and its
+WAL records are applied (``create_space``, ``alloc_shard``,
+``register_split``, ``update_shard_addrs``), so state the reference
+wrote opens here and the reverse; of its proposers only
+``update_shard_addrs`` is here (the scheduler completes a shard task
+with it). The other proposers and the space and shard routes wait for
+the port's shardnode.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ class ClusterMgr(ReplicatedFsm):
         # "bid" is seeded from the legacy counter on first use
         self.scopes: dict[str, int] = {}
         # shardnode catalog (clustermgr/catalog role): space -> sorted
-        # [{shard_id, start, end, addrs}] range map; carried, not served
+        # [{shard_id, start, end, addrs}] range map; applied, not served
         self.spaces: dict[str, list[dict]] = {}
         self._placement_warned: set[str] = set()  # once-per-kind stderr note
         self._next_disk = 1
@@ -460,6 +464,43 @@ class ClusterMgr(ReplicatedFsm):
             nxt = page[-1] if len(keys) > count else ""
             return [(k, self.kvs[k]) for k in page], nxt
 
+    # ---------------- shardnode catalog (applied, not served) ----------------
+    def _apply_create_space(self, name: str, bounds: list[str],
+                            addrs: list[str]) -> list[dict]:
+        if name in self.spaces:
+            raise ValueError(f"space {name!r} exists")
+        shards = []
+        for i in range(len(bounds) - 1):
+            shards.append({"shard_id": self._next_shard,
+                           "start": bounds[i], "end": bounds[i + 1],
+                           "addrs": list(addrs)})
+            self._next_shard += 1
+        self.spaces[name] = shards
+        return [dict(s) for s in shards]
+
+    def _apply_alloc_shard(self) -> int:
+        sid = self._next_shard
+        self._next_shard += 1
+        return sid
+
+    def _apply_register_split(self, space: str, parent_id: int,
+                              child_id: int, split_key: str) -> None:
+        split_ranges(self.spaces[space], parent_id, child_id, split_key)
+
+    def update_shard_addrs(self, space: str, shard_id: int,
+                           addrs: list[str]) -> None:
+        with self._propose_lock:
+            self._commit({"op": "update_shard_addrs", "space": space,
+                          "shard_id": shard_id, "addrs": addrs})
+
+    def _apply_update_shard_addrs(self, space: str, shard_id: int,
+                                  addrs: list[str]) -> None:
+        for s in self.spaces[space]:
+            if s["shard_id"] == shard_id:
+                s["addrs"] = list(addrs)
+                return
+        raise KeyError(f"shard {shard_id} not in space {space!r}")
+
     def topology_view(self) -> dict:
         """AZ->rack->host->disk tree + misplacement/skew summary for
         `cubefs-cli topology blob` (snapshotted under the lock)."""
@@ -593,3 +634,24 @@ class ClusterMgr(ReplicatedFsm):
 
     def rpc_raft_status(self, args, body):
         return self.raft.status() if self.raft else {"role": "standalone"}
+
+
+def split_ranges(shards: list[dict], parent_id: int, child_id: int,
+                 split_key: str) -> None:
+    """In-place range handoff after a shard split: the parent keeps
+    [start, split_key), the child serves [split_key, old_end).
+    Idempotent under retries; rejects a split key outside the parent's
+    CURRENT range (it would create overlapping ranges). The reference
+    keeps this in ``blob/shardnode.py``."""
+    if any(s["shard_id"] == child_id for s in shards):
+        return
+    parent = next(s for s in shards if s["shard_id"] == parent_id)
+    if not (parent["start"] < split_key
+            and (not parent["end"] or split_key < parent["end"])):
+        raise ValueError(
+            f"split key {split_key!r} outside parent range "
+            f"[{parent['start']!r}, {parent['end']!r})")
+    shards.append({"shard_id": child_id, "start": split_key,
+                   "end": parent["end"], "addrs": list(parent["addrs"])})
+    parent["end"] = split_key
+    shards.sort(key=lambda s: s["start"])

@@ -34,13 +34,14 @@ from ..codec.batcher import AdmittedEngine, admit
 from ..codec.encoder import CodecConfig, Encoder, PendingEncode, new_encoder
 
 
-def engine(device=None, name: str = "auto"):
-    """An admitted engine over host (..., C, S) stacks: numpy in, numpy out."""
-    eng = admit(devlib.resolve(device), engine=name)
+def engine(device=None, name: str | None = "auto"):
+    """An admitted engine over host (..., C, S) stacks: numpy in, numpy out.
+    ``name`` None is ``engines.default_name()``, as for ``encoder``."""
+    eng = admit(devlib.resolve(device), engine=name or engines.default_name())
     return eng if eng.host else StagedEngine(eng)
 
 
-def encoder(mode: cm.CodeMode | int, device=None, name: str = "auto"):
+def encoder(mode: cm.CodeMode | int, device=None, name: str | None = "auto"):
     """The codemode's encoder over host stripes, writing rows in place."""
     enc = new_encoder(CodecConfig(mode=cm.CodeMode(int(mode)), engine=name,
                                   device=devlib.resolve(device)))

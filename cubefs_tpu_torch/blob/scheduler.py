@@ -12,8 +12,10 @@ repair tasks, the lease protocol, the repair and delete queues,
 ``TaskSwitch``, migrate, balance and rebalance, the inspector, compaction,
 task persistence and the checkpoint into the clustermgr's kv. The
 inspector's parity recompute runs on ``codecio``'s engine for the
-scheduler's ``device`` and engine name. Waiting for later slices:
-shardnode repair and migration, and the continuous scrub.
+scheduler's ``device`` and engine name. Shard tasks
+(``shard_repair``/``shard_migrate``) are leased and completed into the
+clustermgr's catalog as the reference's are; queuing them waits for the
+port's shardnode, and the continuous scrub for a later slice too.
 """
 
 from __future__ import annotations
@@ -755,6 +757,11 @@ class Scheduler:
             self._record(task_id, "done", worker=worker_id)
             # checkpoint AFTER the cm writeback: a crash in between must
             # re-run the (idempotent) repair, never lose it
+            if t["type"] in ("shard_repair", "shard_migrate"):
+                self.cm.update_shard_addrs(t["space"], t["shard_id"],
+                                           t["new_addrs"])
+                self._checkpoint()
+                return
             self.cm.update_volume_unit(
                 t["vid"], t["unit_index"], t["dest_disk"], t["dest_chunk"],
                 t["dest_addr"],

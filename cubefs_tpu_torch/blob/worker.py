@@ -13,9 +13,10 @@ The port's copy of ``cubefs_tpu/blob/worker.py``: the repair leg (RS,
 LRC and MSR rows, batched ``matrix_apply`` of up to ``batch_stripes``
 stripes, the MSR sub-shard path and its fallback, the extra-survivor
 check that refuses writeback). A worker takes a ``device`` beside the
-engine name; its engine comes from ``codecio``. Shard-replica swaps
-(``shard_repair``/``shard_migrate`` tasks) wait for the port's
-shardnode.
+engine name; its engine comes from ``codecio`` (None: the reference's
+default, ``CUBEFS_TPU_EC_ENGINE`` or the card). Shard-replica swaps
+(``shard_repair``/``shard_migrate`` tasks) are the reference's RPCs to
+the shardnodes.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ class RepairWorker:
         # 'auto' + admission: repair legs inherit the measured
         # crossover policy AND coalesce with concurrent PUT encodes
         # into shared device steps (codec/batcher.py)
-        self.codec = codecio.engine(device, engine or "auto")
+        self.codec = codecio.engine(device, engine)
         self.worker_id = worker_id or uuid.uuid4().hex[:12]
         self.batch_stripes = batch_stripes
         self._stop = threading.Event()
@@ -128,6 +129,8 @@ class RepairWorker:
             self._execute_traced(task, sp)
 
     def _execute_traced(self, task: dict, sp) -> None:
+        if task["type"] in ("shard_repair", "shard_migrate"):
+            return self._execute_shard_swap(task)
         vol = VolumeInfo.from_dict(
             self.cm.call("get_volume", {"vid": task["vid"]})[0]["volume"]
         )
@@ -382,6 +385,37 @@ class RepairWorker:
                      "chunk_id": task["dest_chunk"], "bid": bid},
                     shard,
                 )
+
+    def _execute_shard_swap(self, task: dict) -> None:
+        """shard_repair / shard_migrate execution (shard_disk_repairer
+        role): swap one replica of a shard's raft group. Raft moves the
+        data — the new member starts empty and the leader catches it up
+        (appends or InstallSnapshot); this choreography is idempotent,
+        so a lease expiry mid-way just re-runs it.
+
+        Order matters: the NEW member must exist before survivors
+        repoint at it, or the shrunk group could elect without it."""
+        new_addrs = task["new_addrs"]
+        dest = self.nodes.get(task["dest_addr"])
+        dest.call("create_shard", {
+            "shard_id": task["shard_id"], "start": task["start"],
+            "end": task["end"], "peers": new_addrs})
+        # re-issue the peer list on the destination too: a retried task
+        # may find the shard pre-created with a stale set
+        dest.call("update_shard_peers", {
+            "shard_id": task["shard_id"], "peers": new_addrs})
+        for addr in new_addrs:
+            if addr == task["dest_addr"]:
+                continue
+            self.nodes.get(addr).call("update_shard_peers", {
+                "shard_id": task["shard_id"], "peers": new_addrs})
+        # the old replica (if it still answers) leaves the group; best
+        # effort — a dead node is the usual reason we're here
+        try:
+            self.nodes.get(task["src_addr"]).call("update_shard_peers", {
+                "shard_id": task["shard_id"], "peers": list(new_addrs)})
+        except Exception:
+            pass
 
     def _list_bids(self, vol: VolumeInfo, exclude: int) -> list[int]:
         for u in vol.units:

@@ -1,21 +1,39 @@
 """Role launcher of the port's server.
 
-The port's counterpart of ``cubefs_tpu/cmd.py`` for the one role it
-carries, ``codec`` (the codec sidecar, ``codec/service.py``):
+The port's counterpart of ``cubefs_tpu/cmd.py``: one binary dispatching
+on the ``role`` key of a JSON config,
 
     python -m cubefs_tpu_torch.cmd -c config.json
 
-Config keys (JSON):
-  role:         codec
-  listen_host / listen_port: bind address (port 0: an ephemeral port)
-  ec_engine:    the codec engine (codec/engine.py): cuda (the default),
-                numpy, cpp, numpy-xor, cpp-xor or auto, which loads the
-                persisted crossover table; another name is a KeyError
-  device:       the CUDA device (default: the current one), or "cpu" to
-                run the kernels' plain versions
+for the blob plane's roles and the codec sidecar. Each role builds its
+service object(s), serves them with the RPC layer (``utils/rpc.py``),
+registers with its control plane, and blocks.
 
-It prints ``[codec] listening on host:port`` once it serves, and on
-SIGTERM or SIGINT stops the server and exits 0.
+Config keys (JSON), with the reference's names and defaults:
+  role:         clustermgr | blobnode | proxy | access | scheduler | codec
+  listen_host / listen_port: bind address (port 0: an ephemeral port)
+  clustermgr_addr / proxy_addr: upstreams
+  data_dirs / data_dir / queue_dir / task_dir: storage paths
+  audit_dir:    the audit log, ``<audit_dir>/<role>.audit.log``, and the
+                slow-trace log, ``<audit_dir>/slowtrace.jsonl``
+  ec_engine:    the codec engine (codec/engine.py): cuda, numpy, cpp,
+                numpy-xor, cpp-xor or auto; ``access`` defaults to auto,
+                ``codec`` to ``CUBEFS_TPU_EC_ENGINE`` or cuda
+  blob_size, az, rack, node_id, allow_colocated_units: as the reference's
+  device:       the port's own key: the CUDA device of every role that
+                runs the codec (default: the current one, and a role
+                raises without a card), or "cpu" to run the kernels'
+                plain versions
+
+Configs that need raft (``peers`` of more than one member on
+clustermgr, ``mq_members`` on access, ``mq_me``/``mq_peers`` on the
+scheduler) raise ``NotImplementedError``: the port has no raft yet
+(ROADMAP.md §1 item 4). The file-system roles wait as well (§1 item 9).
+
+Each role prints ``[<role>] listening on host:port`` once it serves. On
+SIGTERM or SIGINT it stops its service (``stop``, then ``fsm_stop``) and
+then the server; an error while closing is printed and the process
+exits 1.
 """
 
 from __future__ import annotations
@@ -24,21 +42,134 @@ import argparse
 import json
 import signal
 import threading
+import traceback
+
+RAFT_PENDING = "the port has no raft yet (ROADMAP.md §1 item 4)"
+
+
+def _audit_for(cfg):
+    from .utils.auditlog import AuditLogger
+
+    if cfg.get("audit_dir"):
+        return AuditLogger(f"{cfg['audit_dir']}/{cfg['role']}.audit.log")
+    return None
+
+
+def _serve(routes, cfg):
+    from .utils import rpc
+
+    srv = rpc.RpcServer(
+        routes, host=cfg.get("listen_host", "127.0.0.1"),
+        port=int(cfg.get("listen_port", 0)),
+        service=cfg["role"], audit=_audit_for(cfg),
+    ).start()
+    print(f"[{cfg['role']}] listening on {srv.addr}", flush=True)
+    return srv
 
 
 def run_role(cfg: dict):
     """Build and start the role's service; returns (server, service)."""
-    role = cfg.get("role")
-    if role != "codec":
-        raise SystemExit(f"unknown role {role!r}")
-    from .codec.service import CodecService
     from .utils import rpc
+    from .utils.rpc import NodePool
 
-    svc = CodecService(engine=cfg.get("ec_engine", "cuda"), device=cfg.get("device"))
-    srv = rpc.RpcServer(rpc.expose(svc), host=cfg.get("listen_host", "127.0.0.1"),
-                        port=int(cfg.get("listen_port", 0))).start()
-    print(f"[{role}] listening on {srv.addr}", flush=True)
-    return srv, svc
+    role = cfg.get("role")
+    pool = NodePool()
+    device = cfg.get("device")
+
+    if role == "clustermgr":
+        from .blob.clustermgr import ClusterMgr
+
+        # more than one peer raises NotImplementedError (utils/fsm.py)
+        svc = ClusterMgr(data_dir=cfg.get("data_dir"),
+                         allow_colocated_units=bool(cfg.get("allow_colocated_units", False)),
+                         me=cfg.get("me"), peers=cfg.get("peers"),
+                         node_pool=pool)
+        return _serve(svc, cfg), svc
+
+    if role == "blobnode":
+        from .blob.blobnode import BlobNode
+
+        svc = BlobNode(int(cfg.get("node_id", 0)), cfg["data_dirs"],
+                       rpc.Client(cfg["clustermgr_addr"]), addr="",
+                       az=cfg.get("az", ""), rack=cfg.get("rack", ""),
+                       device=device)
+        srv = _serve(rpc.expose(svc), cfg)
+        svc.addr = srv.addr
+        svc.register()
+        svc.start_heartbeat()
+        return srv, svc
+
+    if role == "proxy":
+        from .blob.proxy import ProxyAllocator
+
+        svc = ProxyAllocator(rpc.Client(cfg["clustermgr_addr"]))
+        return _serve(rpc.expose(svc), cfg), svc
+
+    if role == "access":
+        from .blob.access import AccessConfig, AccessHandler
+        from .blob.mq import MessageQueue
+
+        if cfg.get("mq_members"):
+            raise NotImplementedError(f"access with mq_members: {RAFT_PENDING}")
+        q_dir = cfg.get("queue_dir")
+        svc = AccessHandler(
+            rpc.Client(cfg["clustermgr_addr"]), pool,
+            AccessConfig(blob_size=int(cfg.get("blob_size", 8 << 20)),
+                         engine=cfg.get("ec_engine", "auto"),
+                         device=device, client_az=cfg.get("az")),
+            repair_queue=MessageQueue(q_dir, "repair") if q_dir else None,
+            delete_queue=MessageQueue(q_dir, "delete") if q_dir else None,
+            proxy_client=rpc.Client(cfg["proxy_addr"]) if cfg.get("proxy_addr") else None,
+        )
+        return _serve(rpc.expose(svc), cfg), svc
+
+    if role == "codec":
+        from .codec.service import CodecService
+
+        svc = CodecService(engine=cfg.get("ec_engine"), device=device)
+        return _serve(rpc.expose(svc), cfg), svc
+
+    if role == "scheduler":
+        # The scheduler colocates with clustermgr state; in multi-process
+        # deployments it owns its own ClusterMgr data dir (leader mode).
+        from .blob.clustermgr import ClusterMgr
+        from .blob.mq import MessageQueue
+        from .blob.scheduler import Scheduler
+
+        if cfg.get("mq_me") and cfg.get("mq_peers"):
+            raise NotImplementedError(f"scheduler with mq_me/mq_peers: {RAFT_PENDING}")
+        cm = ClusterMgr(data_dir=cfg.get("data_dir"))
+        q_dir = cfg.get("queue_dir")
+        svc = Scheduler(
+            cm,
+            repair_queue=MessageQueue(q_dir, "repair") if q_dir else None,
+            delete_queue=MessageQueue(q_dir, "delete") if q_dir else None,
+            node_pool=pool,
+            data_dir=cfg.get("task_dir"),
+            device=device,
+        )
+        svc.start()
+        routes = {**rpc.expose(svc),
+                  **{f"cm_{k}": v for k, v in rpc.expose(cm).items()}}
+        return _serve(dict(routes, role=lambda a, b: {"role": "scheduler"}), cfg), svc
+
+    raise SystemExit(f"unknown role {role!r}")
+
+
+def shutdown(srv, svc) -> int:
+    """Stop the service (``stop``, then ``fsm_stop``), then the server.
+    Every step runs; returns 0, or 1 once any step raised (each error's
+    traceback is printed to stderr)."""
+    rc = 0
+    for step in [getattr(svc, n, None) for n in ("stop", "fsm_stop")] + [srv.stop]:
+        if not callable(step):
+            continue
+        try:
+            step()
+        except Exception:
+            traceback.print_exc()
+            rc = 1
+    return rc
 
 
 def main(argv=None) -> int:
@@ -50,11 +181,10 @@ def main(argv=None) -> int:
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *a: stop.set())
     signal.signal(signal.SIGINT, lambda *a: stop.set())
-    srv, _ = run_role(cfg)
+    srv, svc = run_role(cfg)
     stop.wait()
     print(f"[{cfg['role']}] shutting down", flush=True)
-    srv.stop()
-    return 0
+    return shutdown(srv, svc)
 
 
 if __name__ == "__main__":

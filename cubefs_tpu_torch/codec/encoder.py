@@ -25,7 +25,6 @@ coalesce into one step.
 from __future__ import annotations
 
 import functools
-import os
 import warnings
 from dataclasses import dataclass
 
@@ -34,6 +33,7 @@ import torch
 
 from ..ops import rs_kernel
 from . import codemode as cm
+from . import engine as engines
 from .batcher import AdmittedEngine, CodecFuture, admit
 
 
@@ -88,7 +88,7 @@ class CodecConfig:
 
 def new_encoder(cfg: CodecConfig) -> "Encoder":
     t = cm.tactic(cfg.mode)
-    eng = admit(cfg.device, engine=cfg.engine or os.environ.get("CUBEFS_TPU_EC_ENGINE", "cuda"))
+    eng = admit(cfg.device, engine=cfg.engine or engines.default_name())
     if t.is_msr():
         return MsrEncoder(cfg, t, eng)
     if t.l != 0:

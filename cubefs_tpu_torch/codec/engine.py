@@ -200,13 +200,19 @@ ENGINES = ("cuda", *HOST_ENGINES, "auto")
 _instances: dict[str, object] = {}
 
 
+def default_name() -> str:
+    """The engine a caller that names none gets: ``CUBEFS_TPU_EC_ENGINE``
+    or ``cuda`` (the reference's device default)."""
+    return os.environ.get("CUBEFS_TPU_EC_ENGINE", "cuda")
+
+
 def get_engine(name: str | None = None, device: str | torch.device | None = None):
     """An engine by name; the default is ``CUBEFS_TPU_EC_ENGINE`` or
     ``cuda``. ``device`` is the card of ``cuda`` and of ``auto``'s ``cuda``
     leg (None: the current CUDA device, ``"cpu"``: the plain version);
     the host engines ignore it. Never routed: the engine named is the one
     that runs."""
-    name = name or os.environ.get("CUBEFS_TPU_EC_ENGINE", "cuda")
+    name = name or default_name()
     if name == "cuda":
         return CudaEngine(device)
     if name == "auto":
@@ -267,7 +273,7 @@ def _policy_path() -> str:
 
 
 def _default_leg() -> str:
-    name = os.environ.get("CUBEFS_TPU_EC_ENGINE", "cuda")
+    name = default_name()
     return "cuda" if name == "auto" else name
 
 

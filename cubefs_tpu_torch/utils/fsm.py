@@ -126,7 +126,8 @@ class ReplicatedFsm:
         if peers and len(peers) > 1:
             raise NotImplementedError(
                 f"{group_id}: a replicated FSM ({len(peers)} peers) needs raft, "
-                "which the port does not have yet; run a single member")
+                "which the port does not have yet (ROADMAP.md §1 item 4); "
+                "run a single member")
         if data_dir:
             os.makedirs(data_dir, exist_ok=True)
             self._fsm_load()

@@ -271,6 +271,10 @@ trace_spans_total = DEFAULT.counter(
 trace_evictions = DEFAULT.counter(
     "cubefs_trace_evictions_total",
     "whole traces evicted from the collector (oldest-root-first)")
+slow_traces = DEFAULT.counter(
+    "cubefs_slow_traces_total",
+    "root spans that exceeded CUBEFS_SLOW_MS and were captured to the "
+    "slow-trace forensics log", ("path",))
 ratelimit_waits = DEFAULT.counter(
     "cubefs_ratelimit_waits_total",
     "token-bucket reservations that had to wait for refill", ("limiter",))

@@ -11,12 +11,16 @@ Wire shape: ``POST /<method>`` with JSON args in the ``X-Rpc-Args``
 header and an optional binary body, whose zlib CRC32 may ride in
 ``X-Rpc-Crc``; the reply mirrors it (JSON meta in ``X-Rpc-Resp``, binary
 body). Errors are HTTP 4xx/5xx with ``{"error": message}`` as the meta.
-``GET /metrics`` serves the process's registry in Prometheus text. A
-client sends the active span in ``X-Trace`` and the server continues it
-(``utils/trace.py``).
+``GET /metrics`` serves the process's registry in Prometheus text,
+``GET /spans`` the collected spans and ``GET /traces`` a trace's tree
+(or the known trace ids and the slowest captured roots). A client sends
+the active span in ``X-Trace`` and the server continues it
+(``utils/trace.py``). With an audit logger (``utils/auditlog.py``) the
+server writes one record per POST, and the slow-trace capture
+(``slowtrace.jsonl``) beside it.
 
-Left out here: the chaos hooks (``faultinject``), the audit log and the
-``/spans`` and ``/traces`` endpoints.
+Left out here: the chaos hooks (``faultinject``). The server listens
+with a backlog of 128.
 """
 
 from __future__ import annotations
@@ -115,7 +119,7 @@ class RpcServer:
     start (per-partition raft) are reachable."""
 
     def __init__(self, routes, host: str = "127.0.0.1", port: int = 0,
-                 service: str = "svc"):
+                 service: str = "svc", audit=None):
         self._target = None
         if isinstance(routes, dict):
             self.routes = dict(routes)
@@ -123,6 +127,12 @@ class RpcServer:
             self._target = routes
             self.routes = {}
         self.service = service
+        self.audit = audit  # AuditLogger or None
+        if audit is not None and getattr(audit, "path", None):
+            from . import trace as _tracelib
+
+            _tracelib.configure_slow_log(os.path.join(
+                os.path.dirname(audit.path) or ".", "slowtrace.jsonl"))
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -132,10 +142,10 @@ class RpcServer:
                 pass
 
             def do_GET(self):
-                # the exporter endpoint (util/exporter analog)
-                from urllib.parse import urlsplit
+                # observability endpoints (util/exporter + pprof analog)
+                from urllib.parse import parse_qs, urlsplit
 
-                from . import metrics
+                from . import metrics, trace as tracelib
 
                 parts = urlsplit(self.path)
                 if parts.path == "/metrics":
@@ -144,6 +154,29 @@ class RpcServer:
                     slo.refresh()
                     body = metrics.DEFAULT.render_text().encode()
                     self._reply_raw(200, body, "text/plain; version=0.0.4")
+                elif parts.path == "/spans":
+                    q = parse_qs(parts.query)
+                    tid = (q.get("trace_id") or [None])[0]
+                    body = json.dumps(tracelib.finished_spans(tid)).encode()
+                    self._reply_raw(200, body, "application/json")
+                elif parts.path == "/traces":
+                    q = parse_qs(parts.query)
+                    tid = (q.get("trace_id") or [None])[0]
+                    if tid:
+                        tree = tracelib.trace_tree(tid)
+                        out = {
+                            "trace_id": tid,
+                            "tree": tree,
+                            "render": tracelib.render_tree(tree),
+                        }
+                    else:
+                        top = int((q.get("top") or ["10"])[0])
+                        out = {
+                            "trace_ids": tracelib.known_trace_ids(),
+                            "slow": tracelib.slow_traces(top=top),
+                        }
+                    self._reply_raw(200, json.dumps(out).encode(),
+                                    "application/json")
                 else:
                     self._reply_raw(404, b"not found", "text/plain")
 
@@ -199,6 +232,15 @@ class RpcServer:
                     dt = _time.perf_counter() - t0
                     metrics.rpc_requests.inc(method=name, code=code)
                     metrics.rpc_latency.observe(dt, method=name)
+                    if outer.audit is not None:
+                        detail = ""
+                        slow_ms = tracelib.slow_threshold_ms()
+                        if slow_ms > 0 and dt * 1000.0 >= slow_ms:
+                            detail = tracelib.stage_summary(span.trace_id)
+                        outer.audit.record(outer.service, name, code, dt,
+                                           trace_id=span.trace_id,
+                                           detail=detail,
+                                           tenant=getattr(span, "tenant", ""))
 
             def _reply(self, code: int, meta: dict, payload: bytes):
                 self.send_response(code)

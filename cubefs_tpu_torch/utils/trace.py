@@ -19,7 +19,9 @@ substrate:
   `capture()` snapshots a submitter's context into a `SpanRef` and the
   drain span records **follows-from** links to every submitter.
 - a root's end-to-end "total" sample feeds the SLO tracker in
-  `utils/slo.py`.
+  `utils/slo.py`; roots slower than `CUBEFS_SLOW_MS` capture their
+  reconstructed span tree to a rotating JSONL beside the audit log
+  (slow-request forensics, read by the RPC server's `/traces`).
 - the sampling bit travels in the header: a hop whose caller sent an
   unsampled header records nothing; every root this process opens is
   sampled.
@@ -30,16 +32,17 @@ directly — timestamps come from an injectable Clock (the
 (`seed_ids`), so chaos / tier-1 runs can reproduce span trees exactly.
 
 The port's copy of ``cubefs_tpu/utils/trace.py``, with the same behaviour
-at the reference's defaults. Left out until the slice that serves
-``/spans`` and ``/traces``: the reference's sampling, kill-door and
-slow-request switches (``CUBEFS_TRACE_SAMPLE``, ``CUBEFS_TRACE``,
-``CUBEFS_SLOW_MS``) and the slow-trace capture and renderings.
+at the reference's defaults and the same slow-trace capture. Left out:
+the reference's sampling and kill-door switches (``CUBEFS_TRACE_SAMPLE``,
+``CUBEFS_TRACE``).
 """
 
 from __future__ import annotations
 
 import contextvars
 import heapq
+import json
+import os
 import random
 import threading
 from typing import NamedTuple
@@ -73,12 +76,26 @@ MAX_KEPT = 2048
 # is evicted; pops skip entries whose key no longer matches.
 _evict_heap: list[tuple] = []
 
+# slow-request forensics: in-memory index for `/traces` plus a rotating
+# JSONL capture (configured beside the audit log).
+_slow_index: list[dict] = []
+MAX_SLOW_KEPT = 256
+_slow_log: "_SlowTraceLog | None" = None
+
 _clock = MONOTONIC
 _id_lock = threading.Lock()
 _ids = random.Random()
 
 
 # ---------------------------------------------------------------- knobs
+
+def slow_threshold_ms() -> float:
+    """Active slow-request threshold in ms (0 = forensics disabled)."""
+    try:
+        return float(os.environ.get("CUBEFS_SLOW_MS", "0"))
+    except ValueError:
+        return 0.0
+
 
 def set_clock(clock) -> None:
     """Install a Clock (utils/retry.py protocol). FakeClock makes span
@@ -165,8 +182,11 @@ class Span:
             # SLO tracker windows its quantiles and burn rates over
             metrics.request_stage_seconds.observe(
                 self.duration(), path=self.path, stage="total")
-        if self.sampled:
-            _collect(self)
+        if not self.sampled:
+            return
+        _collect(self)
+        if self.parent_id is None:
+            _maybe_slow(self)
 
     # ---- data ----
     def set_tag(self, key: str, value) -> "Span":
@@ -180,7 +200,8 @@ class Span:
         return self
 
     def set_tenant(self, tenant: str) -> "Span":
-        """Stamp the serving tenant (propagated in the header)."""
+        """Stamp the serving tenant (propagated in the header) so
+        slowtrace forensics can attribute tail latency to a tenant."""
         if tenant:
             self.tenant = tenant
             self.tags["tenant"] = tenant
@@ -417,13 +438,19 @@ def finished_spans(trace_id: str | None = None) -> list[dict]:
 
 
 def reset_collector() -> None:
-    """Test hook: drop all collected spans."""
+    """Test hook: drop all collected spans and slow-trace index."""
     global _span_total, _arrival_seq
     with _collector_lock:
         _traces.clear()
         _span_total = 0
         _arrival_seq = 0
         del _evict_heap[:]
+        del _slow_index[:]
+
+
+def known_trace_ids() -> list[str]:
+    with _collector_lock:
+        return list(_traces)
 
 
 # ------------------------------------------------ tree reconstruction
@@ -449,3 +476,122 @@ def trace_tree(trace_id: str) -> list[dict]:
             _sort(n["children"])
     _sort(roots)
     return roots
+
+
+def render_tree(tree: list[dict]) -> str:
+    """Indented text rendering of trace_tree() output with per-hop
+    durations — what `cubefs-cli trace show` prints."""
+    lines: list[str] = []
+
+    def _walk(node, depth):
+        s = node["span"]
+        pad = "  " * depth
+        svc = s["tags"].get("svc", "")
+        extra = f" [{svc}]" if svc else ""
+        follows = s.get("follows")
+        if follows:
+            extra += f" follows={len(follows)}"
+        err = s["tags"].get("error")
+        if err:
+            extra += f" ERROR({err})"
+        lines.append(
+            f"{pad}{s['op']}  {s['duration'] * 1000:.2f}ms{extra}")
+        for c in node["children"]:
+            _walk(c, depth + 1)
+
+    for root in tree:
+        _walk(root, 0)
+    return "\n".join(lines)
+
+
+def stage_summary(trace_id: str) -> str:
+    """Compact `stage=ms` breakdown of a trace's stage spans — the
+    forensics string appended to slow-request audit records."""
+    parts = []
+    for s in finished_spans(trace_id):
+        st = s["tags"].get("stage")
+        if st:
+            parts.append(f"{st}={s['duration'] * 1000:.1f}ms")
+    return " ".join(parts)
+
+
+# -------------------------------------------- slow-request forensics
+
+class _SlowTraceLog:
+    """Rotating JSONL of captured slow-trace trees (audit-log shaped)."""
+
+    def __init__(self, path: str, max_bytes: int = 16 << 20, keep: int = 4):
+        self.path = path
+        self.max_bytes = max_bytes
+        self.keep = keep
+        self._lock = threading.Lock()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._f = open(path, "a")
+
+    def write(self, rec: dict) -> None:
+        line = json.dumps(rec) + "\n"
+        with self._lock:
+            self._f.write(line)
+            self._f.flush()
+            if self._f.tell() >= self.max_bytes:
+                self._rotate()
+
+    def _rotate(self) -> None:
+        self._f.close()
+        for i in range(self.keep - 1, 0, -1):
+            src = f"{self.path}.{i}"
+            if os.path.exists(src):
+                os.replace(src, f"{self.path}.{i + 1}")
+        os.replace(self.path, f"{self.path}.1")
+        self._f = open(self.path, "a")
+
+    def close(self) -> None:
+        with self._lock:
+            self._f.close()
+
+
+def configure_slow_log(path: str) -> None:
+    """Install the slow-trace capture file (the RPC server points this
+    beside its audit log). Idempotent per path."""
+    global _slow_log
+    if _slow_log is not None and _slow_log.path == path:
+        return
+    old, _slow_log = _slow_log, _SlowTraceLog(path)
+    if old is not None:
+        old.close()
+
+
+def slow_log_path() -> str | None:
+    return _slow_log.path if _slow_log is not None else None
+
+
+def _maybe_slow(root: Span) -> None:
+    threshold_ms = slow_threshold_ms()
+    if threshold_ms <= 0:
+        return
+    dur_ms = root.duration() * 1000.0
+    if dur_ms < threshold_ms:
+        return
+    path = root.path or root.operation
+    metrics.slow_traces.inc(path=path)
+    rec = {
+        "trace_id": root.trace_id, "root_op": root.operation,
+        "path": path, "duration_ms": round(dur_ms, 3),
+        "threshold_ms": threshold_ms, "start": root.start,
+        "stages": stage_summary(root.trace_id),
+    }
+    with _collector_lock:
+        _slow_index.append(rec)
+        if len(_slow_index) > MAX_SLOW_KEPT:
+            del _slow_index[: len(_slow_index) - MAX_SLOW_KEPT]
+    log = _slow_log
+    if log is not None:
+        log.write(dict(rec, tree=trace_tree(root.trace_id)))
+
+
+def slow_traces(top: int = 10) -> list[dict]:
+    """Slowest captured roots, worst-first (`cubefs-cli trace slow`)."""
+    with _collector_lock:
+        idx = list(_slow_index)
+    idx.sort(key=lambda r: r["duration_ms"], reverse=True)
+    return idx[: max(0, top)]

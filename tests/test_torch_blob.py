@@ -240,6 +240,9 @@ def test_state_written_by_either_package_opens_in_the_other(ref, ref_routing, tm
     locs = [w.access.put(d, codemode=cmode.CodeMode.EC6P3) for d in data]
     w.cm.snapshot()
     w.cm.set_config("after_snapshot", "1")  # rides the wal
+    # a GET returns before its hedged reads do: drain them before the
+    # stores close under them
+    w.access._pool.shutdown(wait=True)
     for node in w.nodes:
         node.stop()
 
@@ -268,10 +271,12 @@ def test_state_written_by_either_package_opens_in_the_other(ref, ref_routing, tm
     extra = payload(rng, 70_000)
     new_loc = acc.put(extra, codemode=cmode.CodeMode.EC6P3)
     cm.snapshot()
+    acc._pool.shutdown(wait=True)
     for node in nodes:
         node.stop()
     cm2, acc2, nodes2 = reopen(pkgs[writer], "auto" if writer == "port" else "numpy")
     assert acc2.get(pkgs[writer].types.Location.from_dict(new_loc.to_dict())) == extra
+    acc2._pool.shutdown(wait=True)
     for node in nodes2:
         node.stop()
 
@@ -770,3 +775,137 @@ def test_chunk_store_is_the_ports_own(tmp_path):
     assert all(p.startswith(os.path.join(os.path.dirname(os.path.dirname(
         chunkstore.__file__)), "csrc")) for p in chunkstore.SOURCES)
     node.stop()
+
+
+# ---------------- repairs: catalog records, shard tasks, the default engine ----------------
+
+def _catalog(cm) -> dict:
+    """The clustermgr state the catalog records write, plus the rest."""
+    return json.loads(json.dumps(cm._state_dict()))
+
+
+@pytest.mark.parametrize("port_snapshots", [False, True], ids=["port_wal", "port_snapshot"])
+def test_catalog_records_open_in_both_packages(ref, tmp_path, port_snapshots):
+    """The reference creates a space, splits it and repoints it after its
+    last snapshot, so its WAL holds every shardnode-catalog record; the
+    port opens that directory to the same state. The port then writes a
+    catalog record of its own (and, in one case, snapshots), and the
+    reference opens the result to the port's state."""
+    d = str(tmp_path / "cm")
+    w = ref.clustermgr.ClusterMgr(data_dir=d)
+    w.create_space("s0", 2, ["sn0", "sn1", "sn2"])
+    w.snapshot()
+    w.create_space("s1", 3, ["sn1", "sn2", "sn3"])
+    child = w.alloc_shard_id()
+    w.register_split("s0", 1, child, "4000")
+    w.update_shard_addrs("s1", 4, ["sn0", "sn2", "sn3"])
+    w.register_split("s0", 1, child, "4000")  # a retried split: idempotent
+    want = _catalog(w)
+    w.fsm_stop()
+
+    got = clustermgr.ClusterMgr(data_dir=d)
+    assert _catalog(got) == want
+    got.update_shard_addrs("s0", child, ["sn3", "sn1", "sn2"])
+    if port_snapshots:
+        got.snapshot()
+    mine = _catalog(got)
+    assert mine["spaces"]["s0"][1] == {"shard_id": child, "start": "4000", "end": "8000",
+                                       "addrs": ["sn3", "sn1", "sn2"]}
+    got.fsm_stop()
+    assert _catalog(ref.clustermgr.ClusterMgr(data_dir=d)) == mine
+
+
+class _StubShardnode:
+    """A shardnode's two routes a shard swap calls, logged in order."""
+
+    def __init__(self, addr: str, log: list):
+        self.addr, self.log = addr, log
+
+    def rpc_create_shard(self, args, body):
+        self.log.append((self.addr, "create_shard", args))
+        return {}
+
+    def rpc_update_shard_peers(self, args, body):
+        self.log.append((self.addr, "update_shard_peers", args))
+        return {}
+
+
+def test_reference_shard_task_runs_on_the_port(ref, tmp_path):
+    """A shard_migrate task the reference's scheduler persisted is leased
+    by the port's scheduler, run by the port's worker as the reference's
+    replica swap (RPCs to the shardnodes only: the same calls in the same
+    order as the reference's worker makes from the same state), and
+    completed into the catalog; no volume unit is touched."""
+    import shutil
+
+    base = tmp_path / "ref"
+    cm_r = ref.clustermgr.ClusterMgr(data_dir=str(base / "cm"))
+    cm_r.create_space("s", 2, ["sn0", "sn1", "sn2"])
+    cm_r.register_service("shardnode", "sn3")
+    s_r = ref.scheduler.Scheduler(cm_r, data_dir=str(base / "sched"))
+    tid = s_r.shard_migrate("s", 2, "sn1", "sn3")
+    s_r.stop()
+    cm_r.fsm_stop()
+    shutil.copytree(base, tmp_path / "port")
+
+    def run(pkg, root, **dev):
+        cm_ = pkg.clustermgr.ClusterMgr(data_dir=str(root / "cm"))
+        touched = []
+        cm_.update_volume_unit = lambda *a, **k: touched.append(a)
+        sched = pkg.scheduler.Scheduler(cm_, data_dir=str(root / "sched"), **dev)
+        log, pool = [], pkg.rpc.NodePool()
+        for i in range(4):
+            pool.bind(f"sn{i}", _StubShardnode(f"sn{i}", log))
+        wk = pkg.worker.RepairWorker(pkg.rpc.Client(sched), pkg.rpc.Client(cm_), pool,
+                                     engine="numpy" if not dev else "cpp", **dev)
+        assert wk.run_once() and not wk.run_once()
+        out = (log, sched.tasks[tid]["state"], wk.completed, wk.failed, touched,
+               _catalog(cm_)["spaces"])
+        sched.stop()
+        cm_.fsm_stop()
+        return out
+
+    got = run(PORT, tmp_path / "port", device="cpu")
+    want = run(ref, base)
+    assert got == want
+    log, state, completed, failed, touched, spaces = got
+    assert state == "done" and (completed, failed) == (1, 0) and touched == []
+    assert [(a, m) for a, m, _ in log] == [("sn3", "create_shard"), ("sn3", "update_shard_peers"),
+                                           ("sn0", "update_shard_peers"),
+                                           ("sn2", "update_shard_peers"),
+                                           ("sn1", "update_shard_peers")]
+    assert spaces["s"][1]["addrs"] == ["sn0", "sn3", "sn2"]
+
+
+def _port_engine(codec) -> str:
+    """The engine name under a port engine or encoder, staged or not."""
+    eng = (getattr(codec, "_eng", None) or getattr(codec, "_enc", None) or codec).engine
+    return eng if isinstance(eng, str) else eng.engine
+
+
+@pytest.mark.parametrize("port_env,ref_env", [(None, None), ("cuda", "tpu"), ("cpp", "cpp")],
+                         ids=["unset", "cuda", "cpp"])
+def test_engine_none_follows_the_environment(ref, monkeypatch, port_env, ref_env):
+    """``engine=None`` on the access and the worker is the reference's
+    default: ``CUBEFS_TPU_EC_ENGINE``, else the device (the reference's
+    ``tpu`` is the port's ``cuda``)."""
+    names = {}
+    for pkg, env in ((PORT, port_env), (ref, ref_env)):
+        if env is None:
+            monkeypatch.delenv("CUBEFS_TPU_EC_ENGINE", raising=False)
+        else:
+            monkeypatch.setenv("CUBEFS_TPU_EC_ENGINE", env)
+        dev = {"device": "cpu"} if pkg is PORT else {}
+        cm = pkg.clustermgr.ClusterMgr()
+        acc = pkg.access.AccessHandler(pkg.rpc.Client(cm), pkg.rpc.NodePool(),
+                                       pkg.access.AccessConfig(engine=None, **dev))
+        wk = pkg.worker.RepairWorker(pkg.rpc.Client(cm), pkg.rpc.Client(cm),
+                                     pkg.rpc.NodePool(), engine=None, **dev)
+        enc = acc._encoder(int(cmode.CodeMode.EC6P3))
+        if pkg is PORT:
+            names["port"] = (_port_engine(enc), _port_engine(wk.codec))
+        else:
+            names["ref"] = (enc.engine.name, wk.codec.name)
+    alias = {"tpu": "cuda"}
+    assert names["port"] == tuple(alias.get(n, n) for n in names["ref"])
+    assert names["port"] == (port_env or "cuda",) * 2

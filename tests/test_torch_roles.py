@@ -1,0 +1,666 @@
+"""The port's blob roles over HTTP (``cubefs_tpu_torch/cmd.py``,
+``deploy/cluster.py``) and the server half they need (``utils/auditlog.py``,
+``RpcServer``'s ``/spans`` and ``/traces``, the slow-trace log), held
+against the reference's (``cubefs_tpu``) on the CPU.
+
+Each comparison runs the same calls through both packages: the audit
+records, the slow-trace capture and renderings under a ``FakeClock`` and
+seeded ids, a server of each package over one route table, each role's
+route set, the launcher's cluster against the reference's in-process
+cluster (byte for byte), the HTTP-stitched PUT and repair traces, and
+the port's access role writing through the reference's clustermgr and
+blobnode processes. Two clusters of processes are spawned, each with a
+timeout.
+"""
+
+import http.client
+import json
+import os
+import subprocess
+import time
+import types
+
+import numpy as np
+import pytest
+
+from cubefs_tpu_torch import cmd
+from cubefs_tpu_torch.blob import access, blobnode, clustermgr, mq, proxy, scheduler, worker
+from cubefs_tpu_torch.codec import codemode as cmode
+from cubefs_tpu_torch.deploy import cluster as deploy
+from cubefs_tpu_torch.utils import auditlog, qos, rpc
+from cubefs_tpu_torch.utils import trace as tracelib
+from cubefs_tpu_torch.utils.retry import MONOTONIC, FakeClock
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = types.SimpleNamespace(auditlog=auditlog, trace=tracelib, rpc=rpc, FakeClock=FakeClock,
+                             MONOTONIC=MONOTONIC, clustermgr=clustermgr, proxy=proxy)
+BLOB = 64 << 10
+
+# Routes the reference's roles serve and the port's do not yet: the
+# clustermgr's shardnode catalog (ROADMAP §1 item 5), also under the
+# scheduler's cm_ prefix, and the scheduler's scrub (§1 item 6).
+CM_PENDING = {"alloc_shard_id", "create_space", "get_space", "register_split", "route_key",
+              "shardnode_heartbeat", "update_shard_addrs"}
+PENDING = {"clustermgr": CM_PENDING,
+           "scheduler": {"scrub_run", "scrub_status"} | {f"cm_{r}" for r in CM_PENDING}}
+
+
+@pytest.fixture(scope="module")
+def ref():
+    from cubefs_tpu import cmd as ref_cmd
+    from cubefs_tpu.blob import clustermgr as ref_cm
+    from cubefs_tpu.blob import proxy as ref_proxy
+    from cubefs_tpu.utils import auditlog as ref_audit
+    from cubefs_tpu.utils import rpc as ref_rpc
+    from cubefs_tpu.utils import trace as ref_trace
+    from cubefs_tpu.utils.retry import MONOTONIC as ref_mono
+    from cubefs_tpu.utils.retry import FakeClock as RefFakeClock
+
+    return types.SimpleNamespace(auditlog=ref_audit, trace=ref_trace, rpc=ref_rpc,
+                                 FakeClock=RefFakeClock, MONOTONIC=ref_mono, cmd=ref_cmd,
+                                 clustermgr=ref_cm, proxy=ref_proxy)
+
+
+@pytest.fixture
+def traces(ref, monkeypatch):
+    """Both packages' collectors empty, their clocks real and their
+    slow-trace logs closed before and after (the state is process-wide);
+    the trace doors at their defaults."""
+    for var in ("CUBEFS_TRACE", "CUBEFS_TRACE_SAMPLE", "CUBEFS_SLOW_MS"):
+        monkeypatch.delenv(var, raising=False)
+
+    def reset():
+        for pkg in (PORT, ref):
+            pkg.trace.reset_collector()
+            pkg.trace.set_clock(pkg.MONOTONIC)
+            log, pkg.trace._slow_log = pkg.trace._slow_log, None
+            if log is not None:
+                log.close()
+
+    reset()
+    yield
+    reset()
+
+
+@pytest.fixture
+def still_qos(monkeypatch):
+    """The port's QoS gate pinned burn-free, as the repo's conftest pins
+    the reference's."""
+    class _Still:
+        def snapshot(self):
+            return {}
+
+    monkeypatch.setattr(qos.DEFAULT, "_tracker", _Still())
+    monkeypatch.setattr(qos.DEFAULT, "_levels", {})
+    monkeypatch.setattr(qos.DEFAULT, "_last_refresh", float("-inf"))
+
+
+def payload(rng, n):
+    return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+
+def http_get(addr: str, path: str):
+    host, port = addr.rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def http_post(addr: str, method: str, args: dict, body: bytes = b"", headers=None):
+    host, port = addr.rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=60)
+    try:
+        conn.request("POST", f"/{method}", body=body,
+                     headers={"X-Rpc-Args": json.dumps(args), **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.headers.get("X-Rpc-Resp") or "{}"), resp.read()
+    finally:
+        conn.close()
+
+
+def records(path, drop=()) -> list[dict]:
+    """A jsonl file's records, without the keys in ``drop``."""
+    with open(path) as f:
+        return [{k: v for k, v in json.loads(line).items() if k not in drop} for line in f]
+
+
+def audit_records(path, n: int, drop=(), timeout: float = 10.0) -> list[dict]:
+    """The audit log's records once it holds ``n`` (a server writes a
+    call's record after its reply), sorted: calls close in any order."""
+    deadline = time.time() + timeout
+    while True:
+        recs = records(path, drop) if os.path.exists(path) else []
+        if len(recs) >= n or time.time() > deadline:
+            return sorted(recs, key=lambda r: json.dumps(r, sort_keys=True))
+        time.sleep(0.01)
+
+
+# ---------------- audit log ----------------
+
+def _audit_rotation(pkg, d):
+    log = pkg.auditlog.AuditLogger(str(d / "audit.log"), max_bytes=500, keep=3)
+    for i in range(40):
+        log.record("svc", "op", 200, 0.001, detail=f"req {i}")
+    log.close()
+    return sorted(os.listdir(d)), [records(d / f, ("ts",)) for f in sorted(os.listdir(d))]
+
+
+def _audit_tenant(pkg, d):
+    log = pkg.auditlog.AuditLogger(str(d / "audit.log"))
+    log.record("access", "put", 200, 0.01, tenant="acme", trace_id="t1", detail="x" * 300)
+    log.record("access", "get", 500, 0.0123456)  # anonymous: field omitted
+    log.close()
+    return records(d / "audit.log", ("ts",))
+
+
+@pytest.mark.parametrize("case", [_audit_rotation, _audit_tenant], ids=["rotation", "tenant"])
+def test_audit_log_equals_the_reference(ref, tmp_path, case):
+    """The same records through each package's logger: the same files and
+    the same records, wall-clock stamps aside."""
+    (tmp_path / "port").mkdir()
+    (tmp_path / "ref").mkdir()
+    got, want = case(PORT, tmp_path / "port"), case(ref, tmp_path / "ref")
+    assert got == want and got
+
+
+# ---------------- slow traces ----------------
+
+def _slow_scenario(pkg, path):
+    t = pkg.trace
+    t.configure_slow_log(path)
+    clock = pkg.FakeClock(5.0)
+    t.set_clock(clock)
+    t.seed_ids(0x5107)
+    with t.path_span("blob.get", "access.get") as sp:
+        sp.set_tag("svc", "access")
+        slow = sp.trace_id
+        with t.stage("read"):
+            clock.advance(0.2)
+        with t.stage("decode"):
+            clock.advance(0.03)
+    with t.path_span("blob.put", "access.put", tenant="acme"):
+        clock.advance(0.001)  # fast
+    try:
+        with t.path_span("blob.put", "access.put"):
+            with t.stage("quorum_write"):
+                clock.advance(0.09)
+                raise RuntimeError("lost quorum")
+    except RuntimeError:
+        pass
+    remote = t.from_header("blobnode.put_shard", f"{slow}:abcd:1:blob.get")
+    with remote:
+        clock.advance(0.5)  # a hop with a remote parent is never a root
+    ids = t.known_trace_ids()
+    return {"ids": ids, "slow": t.slow_traces(top=5), "slow_1": t.slow_traces(top=1),
+            "summary": {i: t.stage_summary(i) for i in ids},
+            "render": {i: t.render_tree(t.trace_tree(i)) for i in ids},
+            "log_path": os.path.basename(t.slow_log_path()), "file": records(path)}
+
+
+@pytest.mark.parametrize("slow_ms", [None, "50", "100"], ids=["unset", "50ms", "100ms"])
+def test_slow_traces_equal_the_reference(ref, traces, tmp_path, monkeypatch, slow_ms):
+    if slow_ms is not None:
+        monkeypatch.setenv("CUBEFS_SLOW_MS", slow_ms)
+    got = _slow_scenario(PORT, str(tmp_path / "port" / "slowtrace.jsonl"))
+    want = _slow_scenario(ref, str(tmp_path / "ref" / "slowtrace.jsonl"))
+    assert got == want
+    n = {None: 0, "50": 2, "100": 1}[slow_ms]  # roots of 230, 1 and 90 ms
+    assert len(got["slow"]) == len(got["file"]) == n
+    assert {r["trace_id"] for r in got["file"]} == {r["trace_id"] for r in got["slow"]}
+    assert "read=200.0ms decode=30.0ms" in got["summary"].values()
+
+
+# ---------------- RpcServer: /spans, /traces and the audit records ----------------
+
+def _routes(pkg, clock):
+    t = pkg.trace
+
+    def ok(args, body):
+        with t.path_span("blob.put", "access.put") as sp:
+            sp.set_tag("svc", "access")
+            with t.stage("quorum_write"):
+                clock.advance(0.04)
+        return {"n": len(body)}, body[::-1]
+
+    def missing(args, body):
+        raise pkg.rpc.RpcError(404, "no such blob")
+
+    def boom(args, body):
+        with t.stage("decode"):
+            clock.advance(0.002)
+        raise RuntimeError("decode failed")
+
+    return {"ok": ok, "missing": missing, "boom": boom}
+
+
+def _serve_and_call(pkg, d, tenant_header):
+    pkg.trace.seed_ids(0x5E7)
+    clock = pkg.FakeClock(50.0)
+    pkg.trace.set_clock(clock)
+    audit = pkg.auditlog.AuditLogger(str(d / "access.audit.log"))
+    srv = pkg.rpc.RpcServer(_routes(pkg, clock), service="access", audit=audit).start()
+    try:
+        replies = [http_post(srv.addr, "ok", {}, b"abc"),
+                   http_post(srv.addr, "missing", {}),
+                   http_post(srv.addr, "boom", {}),
+                   http_post(srv.addr, "nope", {}),  # not a route: no record
+                   http_post(srv.addr, "ok", {}, b"xy", {"X-Trace": tenant_header})]
+        spans = json.loads(http_get(srv.addr, "/spans")[1])
+        tid = spans[0]["trace_id"]
+        one = json.loads(http_get(srv.addr, f"/spans?trace_id={tid}")[1])
+        tree = json.loads(http_get(srv.addr, f"/traces?trace_id={tid}")[1])
+        listing = json.loads(http_get(srv.addr, "/traces?top=3")[1])
+        other = http_get(srv.addr, "/nothing")
+        recs = audit_records(d / "access.audit.log", 4, ("ts", "lat_ms"))
+    finally:
+        srv.stop()
+        audit.close()
+    return {"replies": replies, "spans": spans, "one": one, "tree": tree, "listing": listing,
+            "other": other, "audit": recs, "slowtrace": records(d / "slowtrace.jsonl")}
+
+
+@pytest.mark.parametrize("slow_ms", [None, "0.001"], ids=["fast", "slow"])
+def test_rpc_server_spans_traces_and_audit_equal_the_reference(ref, traces, tmp_path,
+                                                                monkeypatch, slow_ms):
+    if slow_ms is not None:
+        monkeypatch.setenv("CUBEFS_SLOW_MS", slow_ms)
+    hdr = "00000000000000aa:00000000000000bb:1:blob.put:acme"
+    got, want = ({}, {})
+    for pkg, out in ((PORT, got), (ref, want)):
+        d = tmp_path / ("port" if pkg is PORT else "ref")
+        d.mkdir()
+        out.update(_serve_and_call(pkg, d, hdr))
+    assert got == want
+    assert [r[0] for r in got["replies"]] == [200, 404, 500, 404, 200]
+    assert sorted((r["op"], r["code"]) for r in got["audit"]) == [
+        ("boom", 500), ("missing", 404), ("ok", 200), ("ok", 200)]
+    assert [r.get("tenant") for r in got["audit"] if r["trace"] == "00000000000000aa"] == ["acme"]
+    assert "access.put" in got["tree"]["render"] and got["other"][0] == 404
+    details = {(r["op"], r.get("detail")) for r in got["audit"]}
+    if slow_ms:
+        assert details == {("ok", "quorum_write=40.0ms"), ("missing", None),
+                           ("boom", "decode=2.0ms")}
+        # the clock stands still in "missing": 0 ms is under the threshold
+        assert [r["root_op"] for r in got["slowtrace"]] == ["access.ok", "access.boom"]
+    else:
+        assert {d for _, d in details} == {None} and got["slowtrace"] == []
+
+
+# ---------------- the roles: route sets, raft configs, shutdown ----------------
+
+def _served(srv) -> set:
+    routes = set(srv.routes)
+    if srv._target is not None:
+        routes |= {n[len("rpc_"):] for n in dir(srv._target) if n.startswith("rpc_")}
+        routes |= set(getattr(srv._target, "extra_routes", {}) or {})
+    return routes
+
+
+def _ref_close(srv, svc):
+    for name in ("stop", "fsm_stop"):
+        fn = getattr(svc, name, None)
+        if callable(fn):
+            fn()
+    srv.stop()
+
+
+ROLES = ["clustermgr", "blobnode", "proxy", "access", "scheduler", "codec"]
+
+
+@pytest.fixture(scope="module")
+def role_cm(tmp_path_factory):
+    """A port clustermgr role in this process: the upstream of the roles
+    under test (the reference's roles register with it over HTTP)."""
+    d = tmp_path_factory.mktemp("role_cm")
+    srv, svc = cmd.run_role({"role": "clustermgr", "data_dir": str(d / "cm"),
+                             "allow_colocated_units": True, "device": "cpu"})
+    yield srv.addr
+    assert cmd.shutdown(srv, svc) == 0
+
+
+@pytest.mark.parametrize("role", ROLES)
+def test_role_route_set_equals_the_reference(ref, traces, still_qos, role_cm, tmp_path,
+                                             monkeypatch, role):
+    monkeypatch.setenv("CUBEFS_TPU_EC_ENGINE", "numpy")  # the reference's codec role
+
+    def run(pkg_cmd, tag, **dev):
+        d = tmp_path / tag
+        cfg = {"role": role, "listen_port": 0, "clustermgr_addr": role_cm,
+               "audit_dir": str(d / "audit"), "data_dirs": [str(d / "bn0")],
+               "data_dir": str(d / role), **dev}
+        srv, svc = pkg_cmd.run_role(cfg)
+        try:
+            return _served(srv), http_post(srv.addr, "no_such_route", {})[0]
+        finally:
+            if pkg_cmd is cmd:
+                assert cmd.shutdown(srv, svc) == 0
+            else:
+                _ref_close(srv, svc)
+
+    got, code = run(cmd, "port", device="cpu")
+    want, ref_code = run(ref.cmd, "ref")
+    assert got == want - PENDING.get(role, set())
+    assert PENDING.get(role, set()) <= want and code == ref_code == 404
+    assert os.path.exists(tmp_path / "port" / "audit" / f"{role}.audit.log")
+
+
+@pytest.mark.parametrize("cfg", [
+    {"role": "clustermgr", "me": "127.0.0.1:1", "peers": ["127.0.0.1:1", "127.0.0.1:2",
+                                                           "127.0.0.1:3"]},
+    {"role": "access", "clustermgr_addr": "127.0.0.1:1", "mq_members": ["127.0.0.1:4"]},
+    {"role": "scheduler", "mq_me": "127.0.0.1:5", "mq_peers": ["127.0.0.1:5", "127.0.0.1:6"]},
+], ids=["clustermgr_peers", "access_mq_members", "scheduler_mq_peers"])
+def test_raft_configs_raise(cfg, tmp_path):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 4"):
+        cmd.run_role(dict(cfg, listen_port=0, device="cpu", data_dir=str(tmp_path / "d")))
+
+
+class _Closer:
+    def __init__(self, log, fail=()):
+        self.log, self.fail = log, fail
+
+    def __getattr__(self, name):
+        if name not in ("stop", "fsm_stop"):
+            raise AttributeError(name)
+
+        def step():
+            self.log.append(name)
+            if name in self.fail:
+                raise OSError(f"{name} failed")
+        return step
+
+
+@pytest.mark.parametrize("fail,rc", [((), 0), (("stop",), 1), (("fsm_stop", "srv"), 1)],
+                         ids=["clean", "stop_fails", "fsm_and_server_fail"])
+def test_shutdown_runs_every_step_and_exits_1_on_an_error(capsys, fail, rc):
+    log = []
+    srv = types.SimpleNamespace(stop=_Closer(log, ("stop",) if "srv" in fail else ()).stop)
+    assert cmd.shutdown(srv, _Closer(log, fail)) == rc
+    assert log == ["stop", "fsm_stop", "stop"]
+    err = capsys.readouterr().err
+    assert all(f"{n} failed" in err for n in fail if n != "srv") and (rc == 0) == (err == "")
+
+
+def test_proxy_allocator_equals_the_reference(ref):
+    """The proxy's volume and bid leases over twin clustermgrs, through
+    its routes (``alloc``, ``invalidate``)."""
+    out = []
+    for pkg in (PORT, ref):
+        cm = pkg.clustermgr.ClusterMgr(allow_colocated_units=True)
+        for i in range(12):
+            cm.register_disk(f"node{i % 4}", f"/d{i}")
+        p = pkg.proxy.ProxyAllocator(pkg.rpc.Client(cm))
+        p.BID_BATCH = 16
+        p.VOLUME_REUSE = 3
+        calls = [p.rpc_alloc({"codemode": int(cmode.CodeMode.EC6P3), "count": c}, b"")
+                 for c in (1, 2, 1, 20, 3)]
+        p.rpc_invalidate({"codemode": int(cmode.CodeMode.EC6P3)}, b"")
+        calls.append(p.rpc_alloc({"codemode": int(cmode.CodeMode.EC6P3), "count": 1}, b""))
+        out.append([(c["volume"]["vid"], c["min_bid"]) for c in calls])
+    assert out[0] == out[1]
+    assert len({vid for vid, _ in out[0]}) > 2  # the volume rotated and was invalidated
+
+
+# ---------------- wire compatibility: the port's access on the reference's roles ----------------
+
+def test_port_access_writes_through_the_reference_roles(ref, tmp_path, rng, monkeypatch):
+    """The reference's clustermgr and four blobnodes (``python -m
+    cubefs_tpu.cmd``, on the CPU) behind the port's access role; the
+    reference's ``rpc.call`` PUTs and GETs through it, and the data rows
+    on the reference's blobnodes are the payload."""
+    from cubefs_tpu.deploy import cluster as ref_deploy
+
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")  # the reference's processes inherit it
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    procs = []
+
+    def spawn(pkg_proc, role, cfg):
+        cfg["role"] = role
+        procs.append(pkg_proc(role, cfg, str(tmp_path)))
+        return procs[-1]
+
+    try:
+        cm = spawn(ref_deploy.Proc, "clustermgr", {"data_dir": str(tmp_path / "cm")})
+        cm_addr = cm.wait_addr(timeout=120.0)
+        nodes = [spawn(ref_deploy.Proc, "blobnode", {
+            "name": f"blobnode{i}", "node_id": i, "clustermgr_addr": cm_addr,
+            "data_dirs": [str(tmp_path / f"bn{i}d{d}") for d in range(3)]}) for i in range(4)]
+        for n in nodes:
+            n.wait_addr(timeout=120.0)
+        acc = spawn(deploy.Proc, "access", {"clustermgr_addr": cm_addr, "blob_size": BLOB,
+                                            "device": "cpu"})
+        acc_addr = acc.wait_addr(timeout=120.0)
+        deadline = time.time() + 60
+        while len(ref.rpc.call(cm_addr, "list_disks")[0]["disks"]) < 12:
+            assert time.time() < deadline, "the blobnodes did not register"
+            time.sleep(0.2)
+        data = payload(rng, 2 * BLOB + 777)
+        meta, _ = ref.rpc.call(acc_addr, "put", {"codemode": int(cmode.CodeMode.EC6P3)}, data)
+        _, got = ref.rpc.call(acc_addr, "get", {"location": meta["location"]})
+        assert got == data
+        sl = meta["location"]["slices"][0]
+        vol = ref.rpc.call(cm_addr, "get_volume", {"vid": sl["vid"]})[0]["volume"]
+        t = cmode.tactic(cmode.CodeMode.EC6P3)
+        rows = [ref.rpc.call(u["node_addr"], "get_shard", {
+            "disk_id": u["disk_id"], "chunk_id": u["chunk_id"], "bid": sl["min_bid"]})[1]
+            for u in vol["units"][: t.n]]
+        assert b"".join(rows)[:BLOB] == data[:BLOB]
+    finally:
+        for p in procs:
+            p.p.terminate()
+        for p in procs:
+            try:
+                p.p.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                p.p.kill()
+                p.p.wait()
+
+
+# ---------------- the launcher's cluster against the reference's ----------------
+
+class RefCluster:
+    """The reference's in-process blob cluster (its test pattern)."""
+
+    def __init__(self, root, n_nodes=4, disks=3):
+        from cubefs_tpu.blob import access as ra, blobnode as rb, clustermgr as rc
+        from cubefs_tpu.utils import rpc as rr
+
+        self.cm = rc.ClusterMgr()
+        cmc, pool = rr.Client(self.cm), rr.NodePool()
+        self.nodes = []
+        for n in range(n_nodes):
+            node = rb.BlobNode(n, [os.path.join(str(root), f"n{n}d{d}") for d in range(disks)],
+                               cmc, addr=f"node{n}")
+            node.register()
+            node.send_heartbeat()
+            pool.bind(node.addr, node)
+            self.nodes.append(node)
+        self.access = ra.AccessHandler(cmc, pool, ra.AccessConfig(blob_size=BLOB,
+                                                                  engine="numpy"))
+
+    def stop(self):
+        self.access._pool.shutdown(wait=True)  # hedged reads outlive a GET
+        for n in self.nodes:
+            n.stop()
+
+
+@pytest.fixture(scope="module")
+def launched(tmp_path_factory):
+    """The launcher's cluster on the CPU: clustermgr, 4 blobnodes x 3
+    disks, access (64 KiB blobs, its default ``auto``) and a scheduler,
+    each a process of its own, with audit logs."""
+    wd = tmp_path_factory.mktemp("launched")
+    c = deploy.Cluster({"blobnodes": 4, "disks_per_blobnode": 3, "blob_size": BLOB,
+                        "scheduler": True, "device": "cpu", "audit_dir": str(wd / "audit")},
+                       str(wd), timeout=120.0)
+    try:
+        state = c.up()
+        yield c, state, wd
+    finally:
+        codes = c.down()
+    assert all(rc == 0 for rc in codes.values()), codes
+
+
+def test_launched_cluster_equals_the_reference_cluster(ref, launched, still_qos, tmp_path, rng):
+    """PUT and GET over HTTP through the launcher's processes give the
+    Locations, the GETs and the shard bytes of the reference's in-process
+    cluster; the state file names every role."""
+    c, state, wd = launched
+    with open(wd / "cluster.json") as f:
+        assert json.load(f) == state
+    assert {r: len(a) for r, a in state["roles"].items()} == {
+        "clustermgr": 1, "blobnode": 4, "access": 1, "scheduler": 1}
+    acc = state["roles"]["access"][0]
+    twin = RefCluster(tmp_path)
+    try:
+        for n in (150_000, 1_000, 3 * BLOB):
+            data = payload(rng, n)
+            code, meta, _ = http_post(acc, "put", {"codemode": int(cmode.CodeMode.EC6P3)}, data)
+            assert code == 200
+            want = twin.access.put(data, codemode=cmode.CodeMode.EC6P3)
+            assert meta["location"] == want.to_dict()
+            code, _, got = http_post(acc, "get", {"location": meta["location"]})
+            assert code == 200 and got == data == twin.access.get(want)
+            for sl in want.slices:
+                vol = rpc.call(state["roles"]["clustermgr"][0], "get_volume",
+                               {"vid": sl.vid})[0]["volume"]
+                twin_vol = twin.cm.get_volume(sl.vid)
+                for u, tu in zip(vol["units"], twin_vol.units):
+                    for bid in range(sl.min_bid, sl.min_bid + sl.count):
+                        _, shard = rpc.call(u["node_addr"], "get_shard", {
+                            "disk_id": u["disk_id"], "chunk_id": u["chunk_id"], "bid": bid})
+                        tnode = twin.nodes[int(tu.node_addr.removeprefix("node"))]
+                        assert shard == tnode.get_shard(tu.disk_id, tu.chunk_id, bid)[0]
+    finally:
+        twin.stop()
+
+
+def test_launched_cluster_stitches_traces_and_audits_every_call(launched, rng):
+    """One PUT's trace spans the access and blobnode processes (``/spans``
+    of each, ``/traces`` renders it); the access role's audit log holds
+    one record per call; the scheduler role answers ``role`` and ``stats``."""
+    c, state, wd = launched
+    acc = state["roles"]["access"][0]
+    audit = wd / "audit" / "access.audit.log"
+    old = records(audit) if audit.exists() else []
+    before = len(old)
+    data = payload(rng, 200_000)
+    tid = "00000000000c0ffe"
+    _, meta, _ = http_post(acc, "put", {"codemode": int(cmode.CodeMode.EC6P3)}, data,
+                           {"X-Trace": f"{tid}:0000000000000001:1:"})
+    http_post(acc, "get", {"location": meta["location"]})
+    ops = {s["op"] for s in json.loads(http_get(acc, f"/spans?trace_id={tid}")[1])}
+    assert {"access.put", "stage:bid_alloc", "stage:quorum_write"} <= ops
+    node_ops = set()
+    for bn in state["roles"]["blobnode"]:
+        node_ops |= {s["op"] for s in json.loads(http_get(bn, f"/spans?trace_id={tid}")[1])}
+    assert "blobnode.put_shard" in node_ops
+    tree = json.loads(http_get(acc, f"/traces?trace_id={tid}")[1])
+    assert tree["trace_id"] == tid and "access.put" in tree["render"]
+    assert tid in json.loads(http_get(acc, "/traces")[1])["trace_ids"]
+    recs = [r for r in audit_records(audit, before + 2) if r not in old]
+    assert sorted((r["svc"], r["op"], r["code"]) for r in recs) == [("access", "get", 200),
+                                                                    ("access", "put", 200)]
+    assert [r["op"] for r in recs if r["trace"] == tid] == ["put"]
+    sched = state["roles"]["scheduler"][0]
+    assert rpc.call(sched, "role")[0] == {"role": "scheduler"}
+    assert http_post(sched, "stats", {})[0] == 200
+
+
+def test_launcher_refuses_file_system_roles(tmp_path):
+    for topo in ({"metanodes": 3}, {"datanodes": 1, "blobnodes": 1}, {"objectnode": True}):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 9"):
+            deploy.Cluster(topo, str(tmp_path))
+    assert not os.listdir(tmp_path)
+
+
+# ---------------- HTTP-stitched traces (tests/test_trace_obs.py) against the port ----------------
+
+class _HttpBlobCluster:
+    """The port's blob plane with blobnodes served over real HTTP: the
+    NodePool has no in-process binding for the advertised addrs, so every
+    shard RPC dials the wire and the X-Trace header does the stitching."""
+
+    def __init__(self, tmp_path, n_nodes=4, disks_per_node=3):
+        self.cm = clustermgr.ClusterMgr()
+        self.cm_client = rpc.Client(self.cm)
+        self.pool = rpc.NodePool()
+        self.nodes, self.srvs = [], []
+        for n in range(n_nodes):
+            node = blobnode.BlobNode(n, [str(tmp_path / f"hn{n}d{d}")
+                                         for d in range(disks_per_node)],
+                                     self.cm_client, device="cpu")
+            srv = rpc.RpcServer(rpc.expose(node), service="blobnode").start()
+            node.addr = srv.addr
+            node.register()
+            node.send_heartbeat()
+            self.nodes.append(node)
+            self.srvs.append(srv)
+        self.repair_q = mq.MessageQueue()
+        self.delete_q = mq.MessageQueue()
+        self.access = access.AccessHandler(
+            self.cm_client, self.pool, access.AccessConfig(blob_size=BLOB, device="cpu"),
+            repair_queue=self.repair_q, delete_queue=self.delete_q)
+
+    def stop(self):
+        self.access._pool.shutdown(wait=True)  # hedged reads outlive a GET
+        for s in self.srvs:
+            s.stop()
+        for n in self.nodes:
+            n.stop()
+
+
+def _ops(tid):
+    return {s["op"] for s in tracelib.finished_spans(tid)}
+
+
+def _depth(tree):
+    return max((1 + _depth(n["children"]) for n in tree), default=0)
+
+
+def _root(op):
+    roots = [s for s in tracelib.finished_spans() if s["op"] == op and s["parent_id"] is None]
+    assert roots
+    return roots[0]["trace_id"]
+
+
+@pytest.mark.parametrize("leg", ["put_get", "repair"])
+def test_http_stitched_traces_hold_against_the_port(traces, still_qos, tmp_path, rng, leg):
+    c = _HttpBlobCluster(tmp_path)
+    try:
+        data = payload(rng, 150_000)
+        tracelib.reset_collector()
+        loc = c.access.put(data, codemode=cmode.CodeMode.EC6P3)
+        if leg == "put_get":
+            tid = _root("access.put")
+            assert {"stage:bid_alloc", "stage:quorum_write", "blobnode.put_shard"} <= _ops(tid)
+            assert _depth(tracelib.trace_tree(tid)) >= 3
+            tracelib.reset_collector()
+            assert c.access.get(loc) == data
+            assert {"stage:read", "blobnode.get_shard"} <= _ops(_root("access.get"))
+            return
+        vol = c.cm.get_volume(loc.slices[0].vid)
+        victim = vol.units[1]
+        next(n for n in c.nodes if n.addr == victim.node_addr).break_disk(victim.disk_id)
+        sched = scheduler.Scheduler(c.cm, repair_queue=c.repair_q, delete_queue=c.delete_q,
+                                    node_pool=c.pool, device="cpu")
+        wk = worker.RepairWorker(rpc.Client(sched), c.cm_client, c.pool, device="cpu")
+        assert sched.mark_disk_broken(victim.disk_id) >= 1
+        tracelib.reset_collector()
+        for _ in range(100):
+            if not wk.run_once():
+                break
+        tid = _root("worker.repair")
+        assert {"stage:survivor_reads", "stage:decode", "stage:writeback",
+                "blobnode.get_shard", "blobnode.put_shard"} <= _ops(tid)
+        assert _depth(tracelib.trace_tree(tid)) >= 3
+        assert "worker.repair" in tracelib.render_tree(tracelib.trace_tree(tid))
+        assert c.access.get(loc) == data
+        sched.stop()
+    finally:
+        c.stop()
