@@ -51,8 +51,14 @@ scheduler, each a ``python -m cubefs_tpu_torch.cmd`` process with its
 audit log; 64 MiB objects go in and out over HTTP, healthy and with one
 blobnode process stopped, kernel A counted from the access process's
 ``/metrics``, one PUT's trace read across the processes' ``/spans`` and
-``/traces``. Each phase prints one JSON line; any failure, in any rank,
-raises.
+``/traces``. Then the replicated plane (phase ``raft``): a clustermgr
+raft group of 3, 6 blobnodes x 3 disks, 3 schedulers hosting the
+replicated repair/delete bus and access producing into it, each a
+process on static ports; PUTs and GETs across a clustermgr leader kill
+(the election timed) and the killed member's restart from its raft WAL,
+degraded GETs with a blobnode process stopped, and the repair backlog
+held across the loss of a bus member. Each phase prints one JSON line;
+any failure, in any rank, raises.
 
 The last lines are the kernels' record, the card's name and power limit
 as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -117,6 +123,7 @@ BLOB_PUTS = 8  # per engine
 BLOB_MSR = 24 * MIB  # one EC6P6MSR object: three 8 MiB blobs
 BLOB_NODES, BLOB_DISKS = 6, 3  # EC12P4's 16 units and 2 spares
 ROLES_PUTS = 8  # phase roles: 64 MiB objects PUT, read back, read degraded
+RAFT_PUTS = 4  # phase raft: 64 MiB objects PUT on each side of a clustermgr leader kill
 # the C and D instantiations the kernels' record reports: (case, extract, probe, grid)
 RECORDED_BM = (("tuning_rows_2x12_B4", "bcast", None, "flat"),
                ("tuning_rows_2x12_B4", "bcast", "nodot", "stripe"))
@@ -192,6 +199,56 @@ def scrape(addr: str) -> dict[str, float]:
         conn.close()
     return {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1])
             for ln in text.splitlines() if ln and not ln.startswith("#")}
+
+
+LAUNCH_A = 'cubefs_codec_kernel_launches_total{kernel="gf_apply"}'
+
+
+def timed_case(acc: str, calls: list, nbytes: int) -> tuple[dict, list]:
+    """Run each (method, args, body) on the access role over HTTP, timing
+    each; returns the case's record (wall-clock median, min, max and
+    GiB/s, A's launches and the encode steps by leg from the access
+    process's ``/metrics``) and the replies (meta, payload)."""
+    def series() -> dict[str, float]:
+        return {k: v for k, v in scrape(acc).items() if k.startswith("cubefs_codec_")}
+
+    m0 = series()
+    out, ms = [], []
+    for method, args, body in calls:
+        t = time.perf_counter()
+        status, meta, payload = rpc_post(acc, method, args, body)
+        ms.append((time.perf_counter() - t) * 1e3)
+        if status != 200:
+            raise AssertionError(f"{method} answered {status} {meta}")
+        out.append((meta, payload))
+    m1 = series()
+    med = statistics.median(ms)
+    rec = {"count": len(calls), "bytes": nbytes, "ms": med, "ms_min": min(ms),
+           "ms_max": max(ms), "ms_runs": ms, "gib_s": nbytes / (med / 1e3) / 2**30,
+           "a_launches": m1.get(LAUNCH_A, 0.0) - m0.get(LAUNCH_A, 0.0),
+           "steps": {k.split("{", 1)[1].rstrip("}"): v - m0.get(k, 0.0)
+                     for k, v in m1.items()
+                     if k.startswith("cubefs_codec_batch_steps_total") and v != m0.get(k, 0.0)}}
+    return rec, out
+
+
+def parity_equals_plain(vol: dict, bid: int, n: int, m: int) -> bool:
+    """A blob's stripe fetched from the blobnodes' ``get_shard``: its
+    parity rows against ``rs_kernel``'s plain version on the CPU."""
+    import torch
+
+    from cubefs_tpu_torch.ops import rs_kernel
+
+    rows = []
+    for u in vol["units"]:
+        st, _, shard = rpc_post(u["node_addr"], "get_shard", {
+            "disk_id": u["disk_id"], "chunk_id": u["chunk_id"], "bid": bid})
+        if st != 200:
+            return False
+        rows.append(np.frombuffer(shard, np.uint8))
+    stripe = np.stack(rows)
+    plain = rs_kernel.encode_parity(torch.from_numpy(stripe[None, :n].copy()), m)
+    return bool(np.array_equal(plain[0].numpy(), stripe[n:]))
 
 
 def start_server(root: str, cfg: dict, workdir: str) -> tuple[subprocess.Popen, str]:
@@ -769,44 +826,17 @@ def roles_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = ROLES_PUTS
     scheduler answers ``role`` and ``stats``; every role exits 0 on
     SIGTERM. ``device`` is the roles' (None: the card). Returns the
     record with ``checks`` and ``launches`` (the access process's)."""
-    import torch
-
     from cubefs_tpu_torch.codec import codemode as cm
     from cubefs_tpu_torch.deploy.cluster import Cluster
-    from cubefs_tpu_torch.ops import rs_kernel
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED + 11)
     workdir = tempfile.mkdtemp(prefix="cubefs-smoke-roles-")
-    launch_key = 'cubefs_codec_kernel_launches_total{kernel="gf_apply"}'
     audit_path = os.path.join(workdir, "audit", "access.audit.log")
     cases: dict[str, dict] = {}
 
-    def series(addr: str, prefix: str) -> dict[str, float]:
-        return {k: v for k, v in scrape(addr).items() if k.startswith(prefix)}
-
     def timed(label: str, calls: list, nbytes: int) -> list:
-        """Run each (method, args, body) on access, timing each; the
-        case's record, with A's launches and the encode steps by leg."""
-        m0 = series(acc, "cubefs_codec_")
-        out, ms = [], []
-        for method, args, body in calls:
-            t = time.perf_counter()
-            status, meta, payload = rpc_post(acc, method, args, body)
-            ms.append((time.perf_counter() - t) * 1e3)
-            if status != 200:
-                raise AssertionError(f"{label}: {method} answered {status} {meta}")
-            out.append((meta, payload))
-        m1 = series(acc, "cubefs_codec_")
-        med = statistics.median(ms)
-        cases[label] = {"count": len(calls), "bytes": nbytes, "ms": med,
-                        "ms_min": min(ms), "ms_max": max(ms), "ms_runs": ms,
-                        "gib_s": nbytes / (med / 1e3) / 2**30,
-                        "a_launches": m1.get(launch_key, 0.0) - m0.get(launch_key, 0.0),
-                        "steps": {k.split("{", 1)[1].rstrip("}"): v - m0.get(k, 0.0)
-                                  for k, v in m1.items()
-                                  if k.startswith("cubefs_codec_batch_steps_total")
-                                  and v != m0.get(k, 0.0)}}
+        cases[label], out = timed_case(acc, calls, nbytes)
         return out
 
     def get_json(addr: str, path: str):
@@ -882,17 +912,8 @@ def roles_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = ROLES_PUTS
                 if sl["vid"] not in vols:
                     vols[sl["vid"]] = rpc_post(cmgr, "get_volume", {"vid": sl["vid"]})[1]["volume"]
         sl0 = locs[0]["slices"][0]
-        parity_equal = []
-        for bid in (sl0["min_bid"], sl0["min_bid"] + 1):
-            rows = []
-            for u in vols[sl0["vid"]]["units"]:
-                st_, _, shard = rpc_post(u["node_addr"], "get_shard", {
-                    "disk_id": u["disk_id"], "chunk_id": u["chunk_id"], "bid": bid})
-                rows.append(np.frombuffer(shard, np.uint8) if st_ == 200 else None)
-            stripe = np.stack(rows)
-            plain = rs_kernel.encode_parity(torch.from_numpy(stripe[None, :t12.n].copy()),
-                                            t12.m)
-            parity_equal.append(bool(np.array_equal(plain[0].numpy(), stripe[t12.n:])))
+        parity_equal = [parity_equals_plain(vols[sl0["vid"]], bid, t12.n, t12.m)
+                        for bid in (sl0["min_bid"], sl0["min_bid"] + 1)]
 
         # -- one blobnode process stopped: every object read again ------------
         def units_on(addr: str) -> dict[int, list[int]]:
@@ -921,7 +942,7 @@ def roles_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = ROLES_PUTS
             audit_counts[f'{r["op"]} {r["code"]}'] += 1
         sched_role = rpc_post(sched, "role", {})[:2]
         sched_stats = rpc_post(sched, "stats", {})[0]
-        launches = {"gf_apply": scrape(acc).get(launch_key, 0.0)}
+        launches = {"gf_apply": scrape(acc).get(LAUNCH_A, 0.0)}
     finally:
         codes = c.down()
         shutil.rmtree(workdir, ignore_errors=True)
@@ -951,6 +972,286 @@ def roles_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = ROLES_PUTS
             "cases": cases, "trace": trace, "parity_equal": parity_equal,
             "audit_counts": audit_counts, "exit_codes": codes, "launches": launches,
             "checks": checks}
+
+
+def raft_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = RAFT_PUTS,
+               blob_size: int = BLOB, device: str | None = None) -> dict:
+    """Phase ``raft``: the replicated blob plane as its users start it,
+    every role a ``python -m cubefs_tpu_torch.cmd`` process with its audit
+    log, driven only over HTTP: a clustermgr raft group of 3 on static
+    ports, 6 blobnodes x 3 disks, 3 schedulers each hosting a member of
+    the 2-partition ``repair`` and ``delete`` topics, a proxy, and access
+    (``ec_engine`` auto, ``blob_size`` 8 MiB, the proxy's volume lease)
+    producing into that bus. Every role but the clustermgrs is pointed at
+    a clustermgr follower, which redirects to the leader (421). (Without
+    the proxy's lease every PUT allocates a volume of 16 units from the
+    18 disks, and the disks the blobnodes quarantine as latency outliers
+    under load leave fewer than 16 to allocate from.)
+
+    ``n_puts`` PUTs of ``put`` bytes (EC12P4 by policy), each read back,
+    and a blob's parity held against ``rs_kernel``'s plain version; the
+    clustermgr leader killed (SIGKILL) and the election timed until a new
+    leader answers ``raft_status``; ``n_puts`` more PUTs and every object
+    read back; the killed member restarted from its directory until it
+    reaches the leader's commit index, and its answers to the read routes
+    held against the leader's; one blobnode process stopped (it holds at
+    most M units of any volume) and every object read again: degraded
+    GETs, whose failed reads put ``shard_repair`` events on the bus; the
+    bus read from all three members, one member killed (SIGKILL) and the
+    survivors' repair backlog held against what was put; every remaining
+    role exits 0 on SIGTERM. Kernel A's launches in the access process
+    come from its ``/metrics`` before and after each case. ``device`` is
+    the roles' (None: the card). Returns the record with ``checks`` and
+    ``launches`` (the access process's)."""
+    import socket
+
+    from cubefs_tpu_torch.codec import codemode as cm
+    from cubefs_tpu_torch.deploy.cluster import Proc
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 12)
+    workdir = tempfile.mkdtemp(prefix="cubefs-smoke-raft-")
+    cases: dict[str, dict] = {}
+    procs: dict[str, Proc] = {}  # live roles by name
+    codes: dict[str, int | None] = {}
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    def start(name: str, role: str, cfg: dict) -> Proc:
+        cfg = dict(cfg, name=name, audit_dir=os.path.join(workdir, "audit", name))
+        if device is not None:
+            cfg["device"] = device
+        procs[name] = p = Proc(role, dict(cfg, role=role), workdir)
+        return p
+
+    def up(names: list[str]) -> list[str]:
+        return [procs[n].wait_addr(300.0) for n in names]
+
+    def kill(name: str) -> int:
+        p = procs.pop(name)
+        p.p.kill()
+        return p.p.wait(60)
+
+    def answer(addr: str, method: str, args: dict | None = None):
+        """The route's reply meta, or None while the role is down."""
+        try:
+            st, meta, _ = rpc_post(addr, method, args or {})
+        except OSError:
+            return None
+        return meta if st == 200 else None
+
+    def wait_for(cond, what: str, timeout: float = 60.0):
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            got = cond()
+            if got:
+                return got
+            time.sleep(0.02)
+        raise AssertionError(f"phase raft: timed out waiting for {what}")
+
+    def raft_series(addr: str) -> dict[str, float]:
+        """The clustermgr group's proposal, batch and WAL-fsync counters."""
+        return {k.split("{", 1)[0]: v for k, v in scrape(addr).items()
+                if k.startswith(("cubefs_raft_proposals_total",
+                                 "cubefs_raft_proposal_batches_total",
+                                 "cubefs_raft_wal_fsyncs_total")) and 'group="cm"' in k}
+
+    def leader_of(addrs: list[str]) -> str | None:
+        leaders = [a for a in addrs if (answer(a, "raft_status") or {}).get("role") == "leader"]
+        return leaders[0] if len(leaders) == 1 else None
+
+    def timed(label: str, calls: list, nbytes: int) -> list:
+        cases[label], out = timed_case(acc, calls, nbytes)
+        return out
+
+    def puts(label: str) -> tuple[list, list]:
+        data = [rng.integers(0, 256, put, dtype=np.uint8).tobytes() for _ in range(n_puts)]
+        return [m["location"] for m, _ in timed(label, [("put", {}, d) for d in data], put)], data
+
+    def reads_equal(label: str, locs: list, payloads: list) -> bool:
+        got = timed(label, [("get", {"location": loc}, b"") for loc in locs], put)
+        cases[label]["equal"] = all(p == d for (_, p), d in zip(got, payloads))
+        return cases[label]["equal"]
+
+    def bus(addr: str):
+        st = answer(addr, "mq_status")
+        return None if st is None else {
+            t: [(p["role"], p["backlog"]) for p in st[t]["partitions"]] for t in st}
+
+    def backlog(addr: str, topic: str = "repair") -> int | None:
+        st = bus(addr)
+        return None if st is None else sum(b for _, b in st[topic])
+
+    def bus_led(addrs: list[str]) -> bool:
+        """Every partition of both topics has one leader among addrs."""
+        views = [bus(a) for a in addrs]
+        return all(v is not None for v in views) and all(
+            sum(v[t][p][0] == "leader" for v in views) == 1
+            for t in ("repair", "delete") for p in range(len(views[0][t])))
+
+    cm_addrs = [f"127.0.0.1:{free_port()}" for _ in range(3)]
+    sched_addrs = [f"127.0.0.1:{free_port()}" for _ in range(3)]
+    cm_cfgs = {f"clustermgr{i}": {"listen_port": int(a.rsplit(":", 1)[1]), "me": a,
+                                  "peers": cm_addrs, "data_dir": os.path.join(workdir, f"cm{i}")}
+               for i, a in enumerate(cm_addrs)}
+    try:
+        t = time.perf_counter()
+        for name, cfg in cm_cfgs.items():
+            start(name, "clustermgr", cfg)
+        up(list(cm_cfgs))
+        leader = wait_for(lambda: leader_of(cm_addrs), "a clustermgr leader")
+        follower = next(a for a in cm_addrs if a != leader)
+        nodes = [f"blobnode{i}" for i in range(BLOB_NODES)]
+        for i, name in enumerate(nodes):
+            start(name, "blobnode", {
+                "node_id": i, "clustermgr_addr": follower,
+                "data_dirs": [os.path.join(workdir, f"bn{i}d{d}") for d in range(BLOB_DISKS)]})
+        scheds = [f"scheduler{i}" for i in range(3)]
+        for i, (name, a) in enumerate(zip(scheds, sched_addrs)):
+            start(name, "scheduler", {
+                "listen_port": int(a.rsplit(":", 1)[1]), "mq_me": a, "mq_peers": sched_addrs,
+                "mq_dir": os.path.join(workdir, f"mq{i}"),
+                "data_dir": os.path.join(workdir, f"sched{i}")})
+        node_addrs = up(nodes)  # started together: each opens its own card context
+        up(scheds)
+        # a blobnode registers its disks after it prints its listening line
+        wait_for(lambda: (answer(leader, "stat") or {}).get("disks") == BLOB_NODES * BLOB_DISKS,
+                 "every disk registered with the leader")
+        start("proxy", "proxy", {"clustermgr_addr": follower})
+        proxy = up(["proxy"])[0]
+        start("access", "access", {"clustermgr_addr": follower, "mq_members": sched_addrs,
+                                   "proxy_addr": proxy, "ec_engine": "auto",
+                                   "blob_size": blob_size})
+        acc = up(["access"])[0]
+        wait_for(lambda: bus_led(sched_addrs), "the bus partitions to elect")
+        startup_s = time.perf_counter() - t
+
+        # -- PUTs and GETs through the replicated clustermgr -------------------
+        locs, payloads = puts("put_before")
+        reads_equal("get_before", locs, payloads)
+        mode = cm.CodeMode(locs[0]["codemode"])
+        tac = cm.tactic(mode)
+        sl0 = locs[0]["slices"][0]
+        vol0 = rpc_post(leader, "get_volume", {"vid": sl0["vid"]})[1]["volume"]
+        parity_equal = parity_equals_plain(vol0, sl0["min_bid"], tac.n, tac.m)
+
+        # -- the clustermgr leader killed: the election ------------------------
+        old = next(n for n, c in cm_cfgs.items() if c["me"] == leader)
+        old_term = answer(leader, "raft_status")["term"]
+        raft_counters = {"leader_before_kill": raft_series(leader)}
+        t = time.perf_counter()
+        kill(old)
+        rest = [a for a in cm_addrs if a != leader]
+        new_leader = wait_for(lambda: leader_of(rest), "a new clustermgr leader")
+        election_s = time.perf_counter() - t
+        new_term = answer(new_leader, "raft_status")["term"]
+
+        more_locs, more = puts("put_after")
+        locs, payloads = locs + more_locs, payloads + more
+        reads_equal("get_after", locs, payloads)
+
+        # -- the killed member back from its directory -------------------------
+        t = time.perf_counter()
+        start(old, "clustermgr", cm_cfgs[old])
+        up([old])
+        want = answer(new_leader, "raft_status")
+        back = wait_for(lambda: (lambda s: s if s and s["applied"] >= want["commit"] else None)(
+            answer(leader, "raft_status")), "the restarted member to catch up")
+        catch_up_s = time.perf_counter() - t
+        reads = [("stat", {}), ("scope_watermark", {"name": "bid"}), ("list_config", {}),
+                 ("kv_list", {}), ("get_service", {"name": "proxy"})]
+        reads_equal_leader = all(answer(leader, m, a) == answer(new_leader, m, a)
+                                 for m, a in reads)
+        redirect = rpc_post(leader, "get_volume", {"vid": sl0["vid"]})[:2]
+
+        # -- one blobnode process stopped: degraded GETs -----------------------
+        vols = rpc_post(new_leader, "list_volumes", {})[1]["volumes"]
+        held = {a: {vid: [u["index"] for u in v["units"] if u["node_addr"] == a]
+                    for vid, v in vols.items()} for a in node_addrs}
+        victim = max((a for a in node_addrs
+                      if max(len(ix) for ix in held[a].values()) <= tac.m),
+                     key=lambda a: sum(i < tac.n for ix in held[a].values() for i in ix))
+        vname = nodes[node_addrs.index(victim)]
+        vproc = procs.pop(vname)
+        vproc.p.terminate()
+        codes[vname] = vproc.p.wait(60)
+        lost_reads = sum(sl["count"] * sum(i < tac.n for i in held[victim][str(sl["vid"])])
+                         for loc in locs for sl in loc["slices"])
+        lost_blobs = sum(sl["count"] for loc in locs for sl in loc["slices"]
+                         if any(i < tac.n for i in held[victim][str(sl["vid"])]))
+        reads_equal("degraded_get", locs, payloads)
+
+        # -- the bus: every member's backlog, then one member killed -----------
+        put_events = wait_for(lambda: (lambda b: b[0] if b[0] and len(set(b)) == 1 else None)(
+            [backlog(a) for a in sched_addrs]), "the repair events on every bus member")
+        views_before = {a: bus(a) for a in sched_addrs}
+        bus_leader = next(a for a in sched_addrs if views_before[a]["repair"][0][0] == "leader")
+        killed_sched = scheds[sched_addrs.index(bus_leader)]
+        codes[killed_sched] = kill(killed_sched)
+        survivors = [a for a in sched_addrs if a != bus_leader]
+        wait_for(lambda: bus_led(survivors), "the bus to re-elect among the survivors")
+        survivor_backlogs = [backlog(a) for a in survivors]
+        polled = answer(survivors[0], "mq_status")
+
+        raft_counters["leader_at_end"] = raft_series(new_leader)
+        launches = {"gf_apply": scrape(acc).get(LAUNCH_A, 0.0)}
+    finally:
+        for name, p in procs.items():
+            p.p.terminate()
+        for name, p in procs.items():
+            try:
+                codes[name] = p.p.wait(30)
+            except subprocess.TimeoutExpired:
+                p.p.kill()
+                codes[name] = p.p.wait()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    k = cases
+    checks = {
+        "put_codemode_ec12p4": mode == cm.CodeMode.EC12P4,
+        "get_before.equal": k["get_before"]["equal"],
+        "get_after.equal": k["get_after"]["equal"],
+        "degraded_get.equal": k["degraded_get"]["equal"],
+        "parity_equals_plain": parity_equal,
+        "new_leader_elected": new_leader in rest and new_term > old_term,
+        "put_before_launched_a_each": k["put_before"]["a_launches"] >= n_puts,
+        "put_after_launched_a_each": k["put_after"]["a_launches"] >= n_puts,
+        "degraded_launched_a_per_lost_blob": lost_blobs > 0
+        and k["degraded_get"]["a_launches"] >= lost_blobs,
+        "restarted_member_caught_up": back["applied"] >= want["commit"]
+        and back["role"] == "follower",
+        "restarted_member_reads_equal_leader": reads_equal_leader,
+        "restarted_member_redirects": redirect == (421, {"error": f"leader={new_leader}"}),
+        "repair_events_put": 0 < put_events <= lost_reads,
+        "survivors_hold_every_event": survivor_backlogs == [put_events] * 2,
+        "raft_counters_scraped": len(raft_counters["leader_before_kill"]) == 3
+        and raft_counters["leader_before_kill"]["cubefs_raft_proposals_total"]
+        >= BLOB_NODES * BLOB_DISKS
+        and raft_counters["leader_at_end"].get("cubefs_raft_wal_fsyncs_total", 0) > 0,
+        "every_role_exited_0": all(rc == 0 for n, rc in codes.items()
+                                   if n not in (killed_sched,)),
+        "killed_exited_by_sigkill": codes[killed_sched] == -signal.SIGKILL,
+    }
+    return {"phase": "raft", "card": card, "seconds": time.perf_counter() - t_phase,
+            "startup_s": startup_s,
+            "cluster": {"clustermgrs": 3, "nodes": BLOB_NODES, "disks_per_node": BLOB_DISKS,
+                        "schedulers": 3, "mq_partitions": 2, "proxy": 1,
+                        "blob_size": blob_size,
+                        "put_bytes": put, "puts": 2 * n_puts, "codemode": mode.name,
+                        "blob_shard": -(-blob_size // tac.n)},
+            "cases": cases, "election_s": election_s, "catch_up_s": catch_up_s,
+            "leaders": {"before": leader, "after": new_leader, "follower_pointed_at": follower,
+                        "terms": [old_term, new_term]},
+            "restarted": {"status": back, "leader_commit": want["commit"]},
+            "raft_counters": raft_counters,
+            "bus": {"repair_events": put_events, "failed_data_reads": lost_reads,
+                    "killed": killed_sched, "survivor_backlogs": survivor_backlogs,
+                    "survivor_view": polled},
+            "degraded": {"stopped": vname, "blobs_lost_a_data_unit": lost_blobs},
+            "exit_codes": codes, "launches": launches, "checks": checks}
 
 
 def main() -> int:
@@ -1943,7 +2244,19 @@ def main() -> int:
     if failed:
         raise AssertionError(f"roles checks failed: {failed}")
 
-    # -- 14. the sharded step: 8 ranks over torch.distributed ----------------
+    # -- 14. the replicated blob plane: raft and its failures ----------------
+    # The same plane with its control plane replicated: a clustermgr raft
+    # group of 3 and the repair/delete bus on 3 scheduler members. A runs
+    # in the access process on both sides of a clustermgr leader kill and
+    # on the degraded GETs; its launches come from the access /metrics.
+    torch.cuda.empty_cache()
+    replicated = raft_phase(dev, card)
+    emit(replicated)
+    failed = [k for k, v in replicated["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"raft checks failed: {failed}")
+
+    # -- 15. the sharded step: 8 ranks over torch.distributed ----------------
     # Built above, in this process: the ranks find the libraries and run
     # no nvcc. Every rank runs A and B on its own block; the collectives
     # go through gloo, which stages CUDA buffers through host memory and
@@ -1966,7 +2279,7 @@ def main() -> int:
     if sh_bad:
         raise AssertionError(f"sharded step checks failed: {sh_bad}")
 
-    # -- 15. the kernels' record --------------------------------------------
+    # -- 16. the kernels' record --------------------------------------------
     gf_main, crc_main = gf_results[0], crc_results[0]
     bm_main, probe_main = (next(x for x in bm_results
                                 if (x["case"], x["extract"], x["probe"], x["grid"]) == key)
@@ -1978,6 +2291,7 @@ def main() -> int:
          "engines_launches": eng_phase["launches"]["gf_apply"],
          "blob_launches": blob["launches"]["gf_apply"],
          "roles_launches": roles["launches"]["gf_apply"],
+         "raft_launches": replicated["launches"]["gf_apply"],
          "equal": gf_main["equal"],
          "max_abs_err": gf_main["max_abs_err"], "ms": gf_main["ms"],
          "device_ms": gf_main["device_ms"], "plain_ms": gf_main["plain_ms"],

@@ -10,7 +10,9 @@ the reference's end-to-end CRC discipline.
 The port's copy of ``cubefs_tpu/blob/blobnode.py``. A node takes a
 ``device`` and an engine name (``auto`` by default, as the reference's
 ``admit("auto")``): the MSR helper combination runs on ``codecio``'s
-engine. The chaos hooks (``faultinject``) wait for a later slice.
+engine. The chaos hooks read an installed ``faultinject`` plan: its
+broken disks in ``_disk_down``, its at-rest rot in the verified read,
+and a rewrite through ``rpc_put_shard`` heals planted rot.
 """
 
 from __future__ import annotations
@@ -124,11 +126,20 @@ class BlobNode:
         self.stores.clear()
 
     def break_disk(self, disk_id: int) -> None:
-        """Fault injection: disk stops serving + stops heartbeating."""
+        """Fault injection: disk stops serving + stops heartbeating.
+
+        Kept for direct use, but scenarios that also inject transport
+        faults should use faultinject.FaultPlan.break_disk(addr, id)
+        instead — the plan-level hook (checked in _disk_down) lets disk
+        and network chaos compose in ONE seeded schedule."""
         self._broken.add(disk_id)
 
     def _disk_down(self, disk_id: int) -> bool:
-        return disk_id in self._broken
+        if disk_id in self._broken:
+            return True
+        plan = rpc._fault  # chaos hook; None in production
+        return plan is not None and plan.disk_broken(
+            self.addr or str(self.node_id), disk_id)
 
     # ---------------- data plane ----------------
     def _store(self, disk_id: int) -> ChunkStore:
@@ -220,6 +231,14 @@ class BlobNode:
     def rpc_put_shard(self, args, body):
         crc = self.put_shard(args["disk_id"], args["chunk_id"], args["bid"],
                              body)
+        plan = rpc._fault
+        if plan is not None and plan.heal_rot(
+                self.addr or str(self.node_id), args["disk_id"],
+                f"c{args['chunk_id']}:b{args['bid']}"):
+            # the rewrite replaced a genuinely rotten shard (heal_rot is
+            # False for rewrites of clean shards — zero false repairs)
+            metrics.integrity_corruptions_healed.inc(
+                plane="blob", source=args.get("heal_source") or "repair")
         return {"crc": crc}
 
     def rpc_get_shard(self, args, body):

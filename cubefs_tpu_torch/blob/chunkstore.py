@@ -193,12 +193,23 @@ def verified_get_shard(store: ChunkStore, chunk_id: int, bid: int,
                        node_addr: str | None = None, disk_id: int = 0,
                        source: str = "read") -> tuple[bytes, int]:
     """The ONE sanctioned at-rest shard read outside this module: the
-    native per-shard CRC check runs on every read, and every mismatch
-    lands in cubefs_integrity_corruptions_detected_total{plane="blob"}
-    before the CrcMismatchError propagates to the 409 EC-reconstruction
-    path. (``node_addr`` and ``disk_id`` name the reader, as the
-    reference's at-rest chaos hook takes them; the port has no such
-    hook.)"""
+    native per-shard CRC check runs on every read, planted at-rest chaos
+    faults (``faultinject.FaultPlan.plant_rot`` on ``node_addr`` and
+    ``disk_id``) surface the same way, and every mismatch lands in
+    cubefs_integrity_corruptions_detected_total{plane="blob"} before the
+    CrcMismatchError propagates to the 409 EC-reconstruction path."""
+    from ..utils import faultinject
+
+    if node_addr is not None:
+        plan = faultinject.current()
+        if plan is not None:
+            unit = f"c{chunk_id}:b{bid}"
+            kind = plan.at_rest_fault(node_addr, disk_id, unit)
+            if kind is not None:
+                metrics.integrity_corruptions_detected.inc(
+                    plane="blob", source=source)
+                raise CrcMismatchError(
+                    f"shard {unit}: at-rest {kind}")
     try:
         return store.get_shard(chunk_id, bid, max_size)
     except CrcMismatchError:

@@ -20,19 +20,25 @@ Config keys (JSON), with the reference's names and defaults:
                 numpy-xor, cpp-xor or auto; ``access`` defaults to auto,
                 ``codec`` to ``CUBEFS_TPU_EC_ENGINE`` or cuda
   blob_size, az, rack, node_id, allow_colocated_units: as the reference's
+  me / peers:   a clustermgr raft group (``peers`` lists every member,
+                ``me`` among them; ports must be static, listen_port != 0)
+  mq_members:   access produces its repair/delete events into the
+                replicated bus hosted by these schedulers (QueueProducer)
+  mq_me / mq_peers / mq_dir / mq_partitions: a scheduler hosting a
+                member of the replicated ``repair`` and ``delete`` topics
+                (ReplicatedQueue; ``mq_partitions`` default 2), with the
+                ``mq_<topic>_*`` relay routes and ``mq_status`` mounted
   device:       the port's own key: the CUDA device of every role that
                 runs the codec (default: the current one, and a role
                 raises without a card), or "cpu" to run the kernels'
                 plain versions
 
-Configs that need raft (``peers`` of more than one member on
-clustermgr, ``mq_members`` on access, ``mq_me``/``mq_peers`` on the
-scheduler) raise ``NotImplementedError``: the port has no raft yet
-(ROADMAP.md §1 item 4). The file-system roles wait as well (§1 item 9).
+The file-system roles wait for a later slice (ROADMAP.md §1).
 
 Each role prints ``[<role>] listening on host:port`` once it serves. On
-SIGTERM or SIGINT it stops its service (``stop``, then ``fsm_stop``) and
-then the server; an error while closing is printed and the process
+SIGTERM or SIGINT it stops its service (``stop``, then ``fsm_stop``, which
+stops a clustermgr's raft node), the replicated queues a scheduler hosts,
+and then the server; an error while closing is printed and the process
 exits 1.
 """
 
@@ -43,8 +49,6 @@ import json
 import signal
 import threading
 import traceback
-
-RAFT_PENDING = "the port has no raft yet (ROADMAP.md §1 item 4)"
 
 
 def _audit_for(cfg):
@@ -79,7 +83,8 @@ def run_role(cfg: dict):
     if role == "clustermgr":
         from .blob.clustermgr import ClusterMgr
 
-        # more than one peer raises NotImplementedError (utils/fsm.py)
+        # peers (incl. our own addr) enable raft replication; addresses
+        # must be static (listen_port != 0) so the group can dial us
         svc = ClusterMgr(data_dir=cfg.get("data_dir"),
                          allow_colocated_units=bool(cfg.get("allow_colocated_units", False)),
                          me=cfg.get("me"), peers=cfg.get("peers"),
@@ -107,18 +112,24 @@ def run_role(cfg: dict):
 
     if role == "access":
         from .blob.access import AccessConfig, AccessHandler
-        from .blob.mq import MessageQueue
+        from .blob.mq import MessageQueue, QueueProducer
 
-        if cfg.get("mq_members"):
-            raise NotImplementedError(f"access with mq_members: {RAFT_PENDING}")
         q_dir = cfg.get("queue_dir")
+        mq_members = cfg.get("mq_members")  # replicated bus (Kafka role)
+        if mq_members:
+            nparts = int(cfg.get("mq_partitions", 2))
+            rq = QueueProducer("repair", mq_members, pool, nparts)
+            dq = QueueProducer("delete", mq_members, pool, nparts)
+        else:
+            rq = MessageQueue(q_dir, "repair") if q_dir else None
+            dq = MessageQueue(q_dir, "delete") if q_dir else None
         svc = AccessHandler(
             rpc.Client(cfg["clustermgr_addr"]), pool,
             AccessConfig(blob_size=int(cfg.get("blob_size", 8 << 20)),
                          engine=cfg.get("ec_engine", "auto"),
                          device=device, client_az=cfg.get("az")),
-            repair_queue=MessageQueue(q_dir, "repair") if q_dir else None,
-            delete_queue=MessageQueue(q_dir, "delete") if q_dir else None,
+            repair_queue=rq,
+            delete_queue=dq,
             proxy_client=rpc.Client(cfg["proxy_addr"]) if cfg.get("proxy_addr") else None,
         )
         return _serve(rpc.expose(svc), cfg), svc
@@ -136,20 +147,43 @@ def run_role(cfg: dict):
         from .blob.mq import MessageQueue
         from .blob.scheduler import Scheduler
 
-        if cfg.get("mq_me") and cfg.get("mq_peers"):
-            raise NotImplementedError(f"scheduler with mq_me/mq_peers: {RAFT_PENDING}")
         cm = ClusterMgr(data_dir=cfg.get("data_dir"))
         q_dir = cfg.get("queue_dir")
+        mq_routes: dict = {}
+        if cfg.get("mq_me") and cfg.get("mq_peers"):
+            # replicated bus member (Kafka role): this scheduler hosts a
+            # raft member of each topic; producers relay via mq_*_put
+            from .blob.mq import ReplicatedQueue
+            from .parallel import raft as raftlib
+
+            nparts = int(cfg.get("mq_partitions", 2))
+            rq, dq = (ReplicatedQueue(topic, cfg["mq_me"], cfg["mq_peers"], pool,
+                                      data_dir=cfg.get("mq_dir"), n_partitions=nparts)
+                      for topic in ("repair", "delete"))
+            # one raft table for both topics: merging the two queues'
+            # tables would keep only the second's batched-heartbeat route,
+            # whose registry misses the first topic's groups, so their
+            # followers would never hear a heartbeat and re-elect forever
+            for q in (rq, dq):
+                for node in q.rafts:
+                    raftlib.register_routes(mq_routes, node)
+                mq_routes.update((k, v) for k, v in q.extra_routes.items()
+                                 if k.startswith("mq_"))
+            mq_routes["mq_status"] = lambda a, b: {"repair": rq.status(),
+                                                   "delete": dq.status()}
+        else:
+            rq = MessageQueue(q_dir, "repair") if q_dir else None
+            dq = MessageQueue(q_dir, "delete") if q_dir else None
         svc = Scheduler(
             cm,
-            repair_queue=MessageQueue(q_dir, "repair") if q_dir else None,
-            delete_queue=MessageQueue(q_dir, "delete") if q_dir else None,
+            repair_queue=rq,
+            delete_queue=dq,
             node_pool=pool,
             data_dir=cfg.get("task_dir"),
             device=device,
         )
         svc.start()
-        routes = {**rpc.expose(svc),
+        routes = {**rpc.expose(svc), **mq_routes,
                   **{f"cm_{k}": v for k, v in rpc.expose(cm).items()}}
         return _serve(dict(routes, role=lambda a, b: {"role": "scheduler"}), cfg), svc
 
@@ -157,11 +191,14 @@ def run_role(cfg: dict):
 
 
 def shutdown(srv, svc) -> int:
-    """Stop the service (``stop``, then ``fsm_stop``), then the server.
-    Every step runs; returns 0, or 1 once any step raised (each error's
-    traceback is printed to stderr)."""
+    """Stop the service (``stop``, then ``fsm_stop``), the replicated
+    queues it hosts, then the server. Every step runs; returns 0, or 1
+    once any step raised (each error's traceback is printed to stderr)."""
     rc = 0
-    for step in [getattr(svc, n, None) for n in ("stop", "fsm_stop")] + [srv.stop]:
+    queues = [getattr(svc, n, None) for n in ("repair_queue", "delete_queue")]
+    steps = ([getattr(svc, n, None) for n in ("stop", "fsm_stop")]
+             + [q.stop for q in queues if callable(getattr(q, "stop", None))])
+    for step in steps + [srv.stop]:
         if not callable(step):
             continue
         try:
@@ -182,7 +219,10 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGTERM, lambda *a: stop.set())
     signal.signal(signal.SIGINT, lambda *a: stop.set())
     srv, svc = run_role(cfg)
-    stop.wait()
+    # a signal that lands on another thread runs its Python handler only
+    # once the main thread runs again: wake it twice a second
+    while not stop.wait(0.5):
+        pass
     print(f"[{cfg['role']}] shutting down", flush=True)
     return shutdown(srv, svc)
 

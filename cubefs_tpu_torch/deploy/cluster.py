@@ -23,7 +23,7 @@ blob_azs spreads blobnodes across failure domains round-robin: an int
 yields AZ names az0..azN-1, a list supplies the names. The file-system
 plane (master, metanodes, datanodes, objectnode, fsgateway, console) is
 not ported: a topology that asks for any of it raises
-``NotImplementedError`` (ROADMAP.md §1 item 9), and absent counts are 0
+``NotImplementedError`` (ROADMAP.md §1 item 6), and absent counts are 0
 (the reference starts 3 metanodes and 4 datanodes by default).
 """
 
@@ -84,7 +84,7 @@ class Cluster:
         if asked:
             raise NotImplementedError(
                 f"file-system roles {asked}: the port has no file-system "
-                "plane yet (ROADMAP.md §1 item 9)")
+                "plane yet (ROADMAP.md §1 item 6)")
         self.topo = topo
         self.workdir = workdir
         self.timeout = timeout
@@ -181,7 +181,10 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGINT, lambda *a: stop.set())
     try:
         print(json.dumps(c.up(), indent=2), flush=True)
-        stop.wait()
+        # a signal that lands on another thread runs its Python handler only
+        # once the main thread runs again: wake it twice a second
+        while not stop.wait(0.5):
+            pass
     finally:
         codes = c.down()
     return 0 if all(rc == 0 for rc in codes.values()) else 1

@@ -1,29 +1,33 @@
-"""ReplicatedFsm: the shared persistence door for metadata services.
+"""ReplicatedFsm: the shared persistence/replication door for metadata
+services.
 
 The blob clustermgr (and, in the reference, the FS master) is a state
 machine with one discipline (role parity: the reference backs it with
 raft + RocksDB): every mutation is a record through ONE commit door,
-persisted to a wal, with snapshot/restore built from a single
-serialized-state shape. This mixin is that door.
+persisted to a wal (standalone) or committed through raft (replicated),
+with snapshot/restore built from a single serialized-state shape. This
+mixin is that door.
 
 Host class contract:
   * `_state_dict() -> dict` / `_load_state_dict(dict)` — full FSM state
   * `_apply(record: dict) -> result` — deterministic, takes its own lock
 Provided:
   * `_init_fsm(group_id, data_dir, me, peers, node_pool)`
-  * `_commit(record)` — wal-append, atomic with apply. A record carrying
+  * `_commit(record)` — wal-append (atomic with apply) or raft-propose;
+    raises RpcError(421, "leader=...") on a follower. A record carrying
     an `op_id` is applied at most once: duplicates (transport retries)
     get the first outcome replayed from a bounded cache
-  * `_apply_deduped(record)` — the op_id-aware apply door (wal replay
-    routes through it too)
+  * `_apply_deduped(record)` — the op_id-aware apply door (raft apply
+    fn and wal replay both route through it)
   * `is_leader` / `leader_addr` / `_leader_gate`
-  * `snapshot()` — wal rotation
+  * `snapshot()` — standalone wal rotation (raft compacts on its own)
 
-The port's copy of ``cubefs_tpu/utils/fsm.py`` for a single member: the
-state file (``snapshot.json``) and the wal (``wal.jsonl``) under
-``data_dir`` have the reference's format, so either package opens what
-the other wrote. Waiting for later slices: the raft-replicated mode
-(more than one peer), geo-replication and the segmented snapshots.
+The port's copy of ``cubefs_tpu/utils/fsm.py``: a single member keeps
+the state file (``snapshot.json``) and the wal (``wal.jsonl``) under
+``data_dir``; a group of more than one peer runs a ``parallel/raft``
+node whose directory is ``<data_dir>/raft``. Both have the reference's
+format, so either package opens what the other wrote. Waiting for later
+slices: geo-replication and the segmented snapshots (FS-plane hosts).
 """
 
 from __future__ import annotations
@@ -121,14 +125,21 @@ class ReplicatedFsm:
             allow_block="propose serialization spans the commit "
                         "RPC/raft round by design")
         self._fsm_op_cache: dict[str, tuple] = {}  # op_id -> (result, exc)
-        self.raft = None  # the replicated mode waits for the port's raft
+        self.raft = None
         self.extra_routes: dict = {}
         if peers and len(peers) > 1:
-            raise NotImplementedError(
-                f"{group_id}: a replicated FSM ({len(peers)} peers) needs raft, "
-                "which the port does not have yet (ROADMAP.md §1 item 4); "
-                "run a single member")
-        if data_dir:
+            from ..parallel import raft as raftlib
+
+            if data_dir:
+                os.makedirs(data_dir, exist_ok=True)
+            self.raft = raftlib.RaftNode(
+                group_id, me, peers, self._apply_deduped, node_pool,
+                data_dir=os.path.join(data_dir, "raft") if data_dir else None,
+                snapshot_fn=self._state_bytes, restore_fn=self._restore_bytes,
+            )
+            raftlib.register_routes(self.extra_routes, self.raft)
+            self.raft.start()
+        elif data_dir:
             os.makedirs(data_dir, exist_ok=True)
             self._fsm_load()
             self._wal = open(self._wal_path(), "a")
@@ -201,15 +212,28 @@ class ReplicatedFsm:
                 del self._fsm_op_cache[k]
 
     def _commit(self, record: dict):
-        # apply and wal-append must be one atomic step, else concurrent
-        # commits can log in a different order than they applied and
-        # replay to a different state
-        with self._wal_lock:
-            out = self._apply_deduped(dict(record))
-            if self._wal is not None:
-                self._wal.write(_frame(json.dumps(record)))
-                self._wal.flush()
-        return out
+        if self.raft is None:
+            # apply and wal-append must be one atomic step, else
+            # concurrent commits can log in a different order than they
+            # applied and replay to a different state
+            with self._wal_lock:
+                out = self._apply_deduped(dict(record))
+                if self._wal is not None:
+                    self._wal.write(_frame(json.dumps(record)))
+                    self._wal.flush()
+            return out
+        return self._propose(record)
+
+    def _propose(self, record: dict):
+        """The replicated door: one raft entry; a follower's
+        NotLeaderError becomes the 421 redirect clients follow."""
+        from ..parallel.raft import NotLeaderError
+
+        try:
+            return self.raft.propose(record)
+        except NotLeaderError as e:
+            raise rpc.RpcError(self.REDIRECT,
+                               f"leader={e.leader or ''}") from None
 
     def _commit_many(self, records: list[dict]) -> list:
         """Batch commit door: ONE raft entry (or one wal-lock round in
@@ -218,6 +242,8 @@ class ReplicatedFsm:
         fanned back in order. The wal still records constituents as
         individual lines — a batch entry replays as its constituent
         records, so the replay contract is unchanged."""
+        if self.raft is not None:
+            return self._propose({"op": "__batch__", "records": list(records)})
         with self._wal_lock:
             outs = self._apply_deduped(
                 {"op": "__batch__", "records": [dict(r) for r in records]})
@@ -323,9 +349,11 @@ class ReplicatedFsm:
         self.snapshot()
 
     def snapshot(self) -> int:
-        """Persist state and rotate the wal. Returns 0 (the number of
-        segments written: the port keeps full-state snapshots only)."""
-        if not self._fsm_data_dir:
+        """Standalone mode: persist state and rotate the wal (raft mode
+        compacts through its own snapshot machinery). Returns 0 (the
+        number of segments written: the port keeps full-state snapshots
+        only)."""
+        if not self._fsm_data_dir or self.raft is not None:
             return 0
         with self._wal_lock:
             tmp = self._snap_path() + ".tmp"
@@ -345,5 +373,7 @@ class ReplicatedFsm:
             return 0
 
     def fsm_stop(self) -> None:
-        """Nothing runs beside a single member (the replicated mode
-        stops its raft node here)."""
+        """Stop the raft node of a replicated member (a single member
+        runs nothing beside its wal)."""
+        if self.raft is not None:
+            self.raft.stop()

@@ -6,9 +6,10 @@ under the reference's names, labels and buckets (the RPC transport,
 ``codec_bytes``, the batcher's ``codec_batch_*`` and the rows cache's
 ``codec_program_cache*``), and those of the blob plane and its
 utilities (repair, placement, QoS, SLO, tracing, integrity, disk
-health). Any RPC server mounts ``render_text()`` at ``GET /metrics``.
-Left out: the dp-split family (the port's batcher has no dp split) and
-the file-system, raft and geo-replication families.
+health), the chaos harness's ``faults_injected`` and raft's
+``raft_*`` series. Any RPC server mounts ``render_text()`` at
+``GET /metrics``. Left out: the dp-split family (the port's batcher has
+no dp split) and the file-system and geo-replication families.
 
 Added here: ``cubefs_codec_kernel_launches_total``, the launches of each
 CUDA kernel, counted where ``ops/_build.launch`` counts them.
@@ -208,6 +209,50 @@ breaker_state = DEFAULT.gauge(
 breaker_skips = DEFAULT.counter(
     "cubefs_breaker_skips_total",
     "calls skipped because the address's breaker was open", ("addr",))
+faults_injected = DEFAULT.counter(
+    "cubefs_faults_injected_total",
+    "chaos faults injected by the installed FaultPlan", ("kind",))
+
+# write-path group commit (raft proposal batching)
+raft_proposals = DEFAULT.counter(
+    "cubefs_raft_proposals_total",
+    "entries proposed through the leader group-commit batcher", ("group",))
+raft_proposal_batches = DEFAULT.counter(
+    "cubefs_raft_proposal_batches_total",
+    "batcher drains: each is one log append + one WAL write + one "
+    "replication round", ("group",))
+raft_entries_per_batch = DEFAULT.histogram(
+    "cubefs_raft_entries_per_batch",
+    "entries carried per proposal-batcher drain", ("group",),
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256))
+raft_wal_fsyncs = DEFAULT.counter(
+    "cubefs_raft_wal_fsyncs_total",
+    "actual fsync(2) calls on the raft WAL (group fsync shares one "
+    "flush across concurrent acks)", ("group",))
+raft_batch_apply_latency = DEFAULT.histogram(
+    "cubefs_raft_batch_apply_seconds",
+    "latency of applying one drained batch of committed entries before "
+    "waking waiters", ("group",))
+
+# pipelined replication (CUBEFS_RAFT_PIPELINE) and the shared ReplMux
+# sender plane
+raft_pipelined_appends = DEFAULT.counter(
+    "cubefs_raft_pipelined_appends_total",
+    "AppendEntries dispatched through the pipelined per-follower "
+    "window (sent without waiting for the previous batch's ack)",
+    ("group",))
+raft_inflight_window = DEFAULT.histogram(
+    "cubefs_raft_inflight_window",
+    "in-flight appends per follower observed at dispatch — the "
+    "replication pipeline depth actually used", ("group",),
+    buckets=(1, 2, 3, 4, 6, 8, 12, 16))
+raft_mux_jobs = DEFAULT.counter(
+    "cubefs_raft_mux_jobs_total",
+    "replication jobs shipped through the shared per-address ReplMux "
+    "sender lanes (the multi-raft proposal mux)", ("kind",))
+raft_mux_senders = DEFAULT.gauge(
+    "cubefs_raft_mux_senders",
+    "live sender worker threads in a ReplMux address lane", ("addr",))
 placement_az_skew = DEFAULT.gauge(
     "cubefs_placement_az_skew",
     "volume-unit count spread across AZs (max - min), set by the "
@@ -312,6 +357,10 @@ integrity_corruptions_detected = DEFAULT.counter(
     "at-rest corruptions caught by a CRC check, by plane (fs/blob/wal) "
     "and source (`read` = foreground verified read, `scrub` = "
     "background sweep, `replay` = WAL replay)", ("plane", "source"))
+integrity_corruptions_healed = DEFAULT.counter(
+    "cubefs_integrity_corruptions_healed_total",
+    "corrupt copies rewritten in place from a healthy replica (fs) or "
+    "EC reconstruction (blob), by plane and source", ("plane", "source"))
 integrity_repair_failures = DEFAULT.counter(
     "cubefs_integrity_repair_failures_total",
     "read-repair attempts that could not heal the bad copy (left for "

@@ -19,8 +19,9 @@ the active span in ``X-Trace`` and the server continues it
 server writes one record per POST, and the slow-trace capture
 (``slowtrace.jsonl``) beside it.
 
-Left out here: the chaos hooks (``faultinject``). The server listens
-with a backlog of 128.
+Chaos hook: ``utils/faultinject.py`` installs a plan as ``_fault``;
+``call`` and the in-process ``Client`` then route every attempt through
+it. The server listens with a backlog of 128.
 """
 
 from __future__ import annotations
@@ -34,6 +35,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from . import lockwitness
 from .retry import CircuitBreaker, RetryPolicy
+
+# Chaos hook (utils/faultinject.py): None in production, a FaultPlan in
+# chaos tests. A single module-level identity check is the ONLY cost on
+# the fast path — no allocations, no locks when uninstalled.
+_fault = None
 
 # The one retry/backoff discipline (utils/retry.py) that replaced the
 # ad-hoc sleep(0.05)/sleep(0.1)/3-attempt loops: redirect chasing and
@@ -358,14 +364,26 @@ def call(
          with a justification in tool/lint/rpc_allowlist.py.
 
     The reference's lint (checker rpc-idempotency, CFR001) holds its
-    call sites to this; the port's blob plane makes the same calls."""
+    call sites to this; the port's blob plane makes the same calls.
+
+    The chaos harness (utils/faultinject.py) interposes here when a
+    FaultPlan is installed; drop-after-execute faults simulate exactly
+    the lost-reply case the contract above covers."""
     if lockwitness._active is not None:  # sanitizer door (same pattern)
         lockwitness.note_rpc(addr, method)
+    if _fault is not None:
+        return _fault.around_http(addr, method, args, body, timeout,
+                                  _http_call)
     return _http_call(addr, method, args, body, timeout)
 
 
-def _http_call(addr, method, args, body, timeout):
-    """One HTTP invocation (the body of `call`)."""
+def _http_call(addr, method, args, body, timeout,
+               _corrupt=False, _stale=False):
+    """One HTTP invocation (the body of `call`). The keyword-only fault
+    knobs exist for faultinject: `_corrupt` flips a body byte AFTER the
+    CRC header is computed (the server's CRC door must reject it);
+    `_stale` kills the pooled idle sockets for `addr` first so the
+    reuse path hits a genuinely dead connection."""
     from . import trace as tracelib
 
     headers = {"X-Rpc-Args": json.dumps(args or {})}
@@ -376,6 +394,17 @@ def _http_call(addr, method, args, body, timeout):
     span = tracelib.current()
     if span is not None:
         headers["X-Trace"] = span.header()
+    if _corrupt and body:
+        body = bytes(body)  # may be a zero-copy memoryview
+        body = bytes([body[0] ^ 0xFF]) + body[1:]
+    if _stale:
+        with _POOL._lock:
+            for conn in _POOL._idle.get(addr, []):
+                if conn.sock is not None:
+                    try:  # half-close: fd stays valid, next send EPIPEs
+                        conn.sock.shutdown(socket.SHUT_RDWR)
+                    except OSError:
+                        pass
     for attempt in (0, 1):
         if attempt == 0:
             conn, reused = _POOL.get(addr, timeout)
@@ -431,7 +460,7 @@ class NodePool:
     def bind(self, addr: str, target) -> None:
         with self._lock:
             client = Client(target)
-            client._fault_addr = addr  # the witness's name for it
+            client._fault_addr = addr  # addressable by FaultPlan rules
             self._clients[addr] = client
             self._direct.pop(addr, None)
 
@@ -509,6 +538,12 @@ class Client:
     def call(self, method: str, args: dict | None = None, body: bytes = b"",
              timeout: float = 30.0) -> tuple[dict, bytes]:
         if self._target is not None:
+            if _fault is not None:
+                addr = (self._fault_addr
+                        or f"<{type(self._target).__name__}>")
+                return _fault.around_direct(
+                    addr, method,
+                    lambda: self._invoke_direct(method, args, body))
             return self._invoke_direct(method, args, body)
         if not self._follow:
             # point-to-point mode: the message is for THIS address, a

@@ -9,8 +9,8 @@ byte on every disk, every GET (healthy and with M disks down) and, after
 the same disk breaks and the workers drain, on the destination disks and
 the rebuilt bytes. Then every scenario of ``tests/test_blob_e2e.py``
 whose modules this port holds runs against the port (the raft-replicated
-clustermgr waits for the port's raft), and state written by either
-package opens in the other.
+clustermgr's runs in ``tests/test_torch_replicated.py``), and state
+written by either package opens in the other.
 """
 
 import json

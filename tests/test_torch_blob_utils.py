@@ -330,12 +330,6 @@ def test_fsm_state_written_by_either_package_opens_in_the_other(ref, tmp_path):
         assert r._commit({"op": "set", "k": "k1", "v": 7, "op_id": "o1"}) == 4  # replayed
 
 
-def test_fsm_refuses_a_replicated_group(tmp_path):
-    with pytest.raises(NotImplementedError, match="needs raft"):
-        _fsm_host(PORT).__mro__[1]._init_fsm(object.__new__(_fsm_host(PORT)), "cm",
-                                             str(tmp_path), "a", ["a", "b", "c"], None)
-
-
 # ---------------- the rpc client surface ----------------
 
 class _Svc:

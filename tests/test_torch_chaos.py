@@ -1,0 +1,48 @@
+"""The blob, raft and rpc scenarios of ``tests/test_chaos.py`` on the port.
+
+Each scenario is the reference's source with every ``cubefs_tpu`` import
+pointed at the port (``port_copy``); a blob scenario's cluster is the
+port's in-process cluster of ``tests/test_torch_blob.py`` (``device=
+"cpu"``, engine ``cuda``: the device path on the plain version) where the
+reference builds its own. The file-system, dial, QoS-drill and AZ
+scenarios wait for the modules they drive (ROADMAP.md §1).
+"""
+
+import pytest
+
+from cubefs_tpu_torch.utils import faultinject as fi
+from cubefs_tpu_torch.utils import rpc
+from test_torch_blob import PORT, Cluster, _isolated  # noqa: F401  (autouse fixture)
+from test_torch_raft import port_copy, run_scenario
+
+CHAOS = port_copy("test_chaos", Cluster=lambda root, **kw: Cluster(PORT, root, engine="cuda",
+                                                                   **kw))
+SCENARIOS = {  # the reference's scenarios whose modules the port holds
+    "test_no_plan_means_no_hook_and_shared_null_sender",
+    "test_blob_put_alloc_bids_exactly_once",
+    "test_raft_leader_isolated_mid_write_no_double_apply",
+    "test_replica_failover_breaker_opens_and_recovers",
+    "test_call_replicas_probes_when_every_breaker_is_open",
+    "test_access_get_reconstructs_through_brownout",
+    "test_plan_disk_fault_composes_with_transport_fault",
+    "test_msr_repair_helper_death_falls_back_exactly_once",
+    "test_msr_repair_verify_mismatch_falls_back",
+    "test_http_stale_keepalive_and_crc_corruption",
+    "test_injected_delay_uses_fake_clock_no_wall_sleep",
+    "test_same_seed_reproduces_schedule_byte_for_byte",
+    "test_faultinject_demo_smoke",
+    "test_pipelined_leader_kill_resolves_every_waiter_once",
+    "test_pipelined_follower_partition_drains_inflight",
+}
+
+
+@pytest.fixture(autouse=True)
+def _no_leftover_plan():
+    assert rpc._fault is None, "a previous test leaked an installed plan"
+    yield
+    fi.uninstall()
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_reference_chaos_scenario_on_the_port(name, request):
+    run_scenario(CHAOS, name, request)

@@ -1,0 +1,287 @@
+"""The port's raft (``cubefs_tpu_torch/parallel/raft.py``) held against the
+reference's (``cubefs_tpu/parallel/raft.py``) on the CPU.
+
+- every scenario of ``tests/test_raft.py``, its source run with each
+  ``cubefs_tpu`` import pointed at the port (``port_copy``, which the
+  port's chaos and replicated-bus tests share), its ``wait_leader``
+  waiting until every member names the leader;
+- a data directory written by either package's node opens in the
+  other's with the same term, log, snapshot and applied entries, and the
+  two write the same bytes for the same operations;
+- a group of members of both packages over real HTTP on 127.0.0.1
+  elects, replicates, loses its leader, takes the member back from its
+  directory and ends with equal apply logs on all three;
+- each of the four ``CUBEFS_RAFT_*`` switches flipped: both packages
+  give the same apply log.
+
+Every wait is a condition polled against a deadline.
+"""
+
+import inspect
+import os
+import re
+import socket
+import threading
+import time
+import types
+
+import pytest
+
+from cubefs_tpu_torch.parallel import raft
+from cubefs_tpu_torch.utils import rpc
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+
+
+def port_copy(name: str, **names) -> types.ModuleType:
+    """The reference's test module ``tests/<name>.py`` with every
+    ``cubefs_tpu`` import pointed at the port. ``names`` are bound in its
+    namespace; ``from test_blob_e2e import Cluster`` becomes a no-op, so
+    a ``Cluster`` passed here stands in for the reference's."""
+    path = os.path.join(TESTS, f"{name}.py")
+    with open(path) as f:
+        src = re.sub(r"\bcubefs_tpu\b", "cubefs_tpu_torch", f.read())
+    mod = types.ModuleType(f"{name}_on_the_port")
+    mod.__file__ = path
+    mod.__dict__.update(names)
+    exec(compile(src.replace("from test_blob_e2e import Cluster", "pass"), path, "exec"),
+         mod.__dict__)
+    return mod
+
+
+def scenarios(mod, names=None) -> list[str]:
+    return sorted(n for n in vars(mod) if n.startswith("test_") and (names is None or n in names))
+
+
+def run_scenario(mod, name: str, request) -> None:
+    fn = getattr(mod, name)
+    fn(**{a: request.getfixturevalue(a) for a in inspect.signature(fn).parameters})
+
+
+def wait_for(cond, timeout=10.0, what="condition"):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = cond()
+        if got:
+            return got
+        time.sleep(0.02)
+    raise AssertionError(f"timed out waiting for {what}")
+
+
+RAFT = port_copy("test_raft")
+
+
+def _named_leader(members, timeout=5.0):
+    """The scenarios' ``wait_leader``, which here also waits until every
+    member names the leader: a follower that has not yet heard the new
+    leader's first append refuses a proposal with no leader to name, and
+    the reference's helper races that under load."""
+    def named():
+        leaders = [m for m in members.values() if m.node.status()["role"] == "leader"]
+        return leaders[0] if len(leaders) == 1 and all(
+            m.node.status()["leader"] == leaders[0].node.me for m in members.values()) else None
+
+    return wait_for(named, timeout, "a leader that every member names")
+
+
+RAFT.wait_leader = _named_leader
+
+
+@pytest.mark.parametrize("name", scenarios(RAFT))
+def test_reference_raft_scenario_on_the_port(name, request):
+    run_scenario(RAFT, name, request)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    from cubefs_tpu.parallel import raft as ref_raft
+    from cubefs_tpu.utils import rpc as ref_rpc
+
+    return types.SimpleNamespace(raft=ref_raft, rpc=ref_rpc)
+
+
+PORT = types.SimpleNamespace(raft=raft, rpc=rpc)
+
+
+class Fsm:
+    """An apply log with a snapshot of it: the state a member replicates."""
+
+    def __init__(self):
+        self.applied: list = []
+        self.restored: list[bytes] = []
+
+    def apply(self, entry):
+        self.applied.append(entry)
+        return len(self.applied)
+
+    def snapshot(self) -> bytes:
+        return repr(self.applied).encode()
+
+    def restore(self, data: bytes) -> None:
+        self.restored.append(data)
+
+
+def solo(pkg, d, fsm):
+    """A one-member group over ``d``, started and leading."""
+    node = pkg.raft.RaftNode("g", "a", ["a"], fsm.apply, pkg.rpc.NodePool(), data_dir=str(d),
+                             snapshot_fn=fsm.snapshot, restore_fn=fsm.restore).start()
+    wait_for(lambda: node.status()["role"] == "leader", what="solo leader")
+    return node
+
+
+def files(d) -> dict:
+    return {n: open(os.path.join(d, n), "rb").read() for n in sorted(os.listdir(d))}
+
+
+@pytest.mark.parametrize("direction", ["ref_to_port", "port_to_ref"])
+def test_raft_directory_opens_in_both_packages(ref, tmp_path, direction):
+    writer, reader = (ref, PORT) if direction == "ref_to_port" else (PORT, ref)
+    dirs = {}
+    for tag, pkg in (("w", writer), ("o", reader)):  # the same operations in both
+        fsm = Fsm()
+        node = solo(pkg, tmp_path / tag, fsm)
+        for i in range(5):
+            node.propose({"n": i})
+        node.take_snapshot()
+        for i in range(5, 8):
+            node.propose({"n": i})
+        want = (node.term, node.log_base, node.log_base_term, list(node.log), fsm.snapshot())
+        node.stop()
+        dirs[tag] = (str(tmp_path / tag), want)
+    d, want = dirs["w"]
+    assert files(d) == files(dirs["o"][0])  # meta.json, raft.jsonl, snapshot.json
+
+    fsm = Fsm()
+    node = reader.raft.RaftNode("g", "a", ["a"], fsm.apply, reader.rpc.NodePool(), data_dir=d,
+                                snapshot_fn=fsm.snapshot, restore_fn=fsm.restore)
+    snap = fsm.restored[0]
+    assert (node.term, node.log_base, node.log_base_term, node.log) == want[:4]
+    assert snap == repr([{"n": i} for i in range(5)]).encode()
+    node.start()
+    try:
+        wait_for(lambda: len(fsm.applied) == 3, what="replay past the snapshot")
+        assert fsm.applied == [{"n": i} for i in range(5, 8)]
+        assert node.term == want[0] + 1  # re-elected over the old term
+    finally:
+        node.stop()
+
+
+def free_ports(n: int) -> list[int]:
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+class Member:
+    """One group member of either package behind its own package's
+    ``RpcServer`` at a static address."""
+
+    def __init__(self, pkg, addr, addrs, d):
+        self.pkg, self.addr, self.addrs, self.d = pkg, addr, addrs, d
+        self.routes = {}
+        self.start()
+
+    def start(self):
+        self.fsm = Fsm()
+        self.routes.clear()
+        self.node = self.pkg.raft.RaftNode("g", self.addr, self.addrs, self.fsm.apply,
+                                           self.pkg.rpc.NodePool(), data_dir=self.d)
+        self.pkg.raft.register_routes(self.routes, self.node)
+        port = int(self.addr.rsplit(":", 1)[1])
+        host = types.SimpleNamespace(extra_routes=self.routes)
+        self.srv = self.pkg.rpc.RpcServer(host, port=port).start()
+        self.node.start()
+
+    def stop(self):
+        self.node.stop()
+        self.srv.stop()
+
+    def role(self):
+        return self.node.status()["role"]
+
+
+def leader_of(members):
+    leaders = [m for m in members if m.role() == "leader"]
+    return leaders[0] if len(leaders) == 1 else None
+
+
+@pytest.mark.parametrize("mix", ["ref_ref_port", "ref_port_port"])
+def test_mixed_group_over_http_fails_over_with_equal_apply_logs(ref, tmp_path, mix):
+    pkgs = [{"ref": ref, "port": PORT}[p] for p in mix.split("_")]
+    addrs = [f"127.0.0.1:{p}" for p in free_ports(3)]
+    members = [Member(pkg, a, addrs, str(tmp_path / str(i)))
+               for i, (pkg, a) in enumerate(zip(pkgs, addrs))]
+    try:
+        lead = wait_for(lambda: leader_of(members), what="a leader")
+        for i in range(6):
+            lead.node.propose({"n": i})
+        wait_for(lambda: all(len(m.fsm.applied) == 6 for m in members), what="replication")
+
+        lead.stop()  # the leader is lost; the other two elect and commit
+        rest = [m for m in members if m is not lead]
+        new = wait_for(lambda: leader_of(rest), what="re-election")
+        for i in range(6, 12):
+            new.node.propose({"n": i})
+        lead.start()  # back from its directory: replays, then catches up
+        want = [{"n": i} for i in range(12)]
+        wait_for(lambda: all(m.fsm.applied == want for m in members), timeout=15,
+                 what="equal apply logs on all three")
+        assert {m.pkg is PORT for m in members} == {True, False}
+    finally:
+        for m in members:
+            m.stop()
+
+
+SWITCHES = {  # flipped from the reference's defaults (on, 4, on, 8)
+    "CUBEFS_RAFT_GROUP_COMMIT": ("0", lambda n: not n._group_commit),
+    "CUBEFS_RAFT_PIPELINE": ("0", lambda n: n._pipeline == 0 and n._repl_threads),
+    "CUBEFS_RAFT_MUX": ("0", lambda n: not n._use_mux and n._ticker is not None),
+    "CUBEFS_RAFT_MUX_SENDERS": ("1", lambda n: n._replmux.senders_per_addr == 1),
+}
+
+
+def _apply_log(pkg, switched) -> list:
+    pool = pkg.rpc.NodePool()
+    addrs = ["s0", "s1", "s2"]
+    fsms = {a: Fsm() for a in addrs}
+    hosts = {a: types.SimpleNamespace(extra_routes={}) for a in addrs}
+    nodes = {}
+    for a in addrs:
+        nodes[a] = pkg.raft.RaftNode("g", a, addrs, fsms[a].apply, pool)
+        pkg.raft.register_routes(hosts[a].extra_routes, nodes[a])
+        pool.bind(a, hosts[a])
+    for n in nodes.values():
+        n.start()
+    try:
+        lead = wait_for(lambda: next((n for n in nodes.values()
+                                      if n.status()["role"] == "leader"), None), what="leader")
+        assert switched(lead)
+        results = []
+        for i in range(8):  # one after another: a deterministic order
+            results.append(lead.propose({"n": i}))
+        threads = [threading.Thread(target=lead.propose, args=({"t": i},)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(10)
+        wait_for(lambda: all(len(f.applied) == 16 for f in fsms.values()), what="apply")
+        logs = [f.applied for f in fsms.values()]
+        assert all(log == logs[0] for log in logs)
+        # concurrent proposals land in some order; the sequential ones in theirs
+        return results, logs[0][:8], sorted(e["t"] for e in logs[0][8:])
+    finally:
+        for n in nodes.values():
+            n.stop()
+
+
+@pytest.mark.parametrize("switch", sorted(SWITCHES))
+def test_switch_flipped_gives_the_reference_apply_log(ref, monkeypatch, switch):
+    value, switched = SWITCHES[switch]
+    monkeypatch.setenv(switch, value)
+    got = _apply_log(PORT, switched)
+    assert got == _apply_log(ref, switched)
+    assert got == (list(range(1, 9)), [{"n": i} for i in range(8)], list(range(8)))

@@ -30,6 +30,7 @@ from cubefs_tpu_torch.deploy import cluster as deploy
 from cubefs_tpu_torch.utils import auditlog, qos, rpc
 from cubefs_tpu_torch.utils import trace as tracelib
 from cubefs_tpu_torch.utils.retry import MONOTONIC, FakeClock
+from test_torch_raft import free_ports
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = types.SimpleNamespace(auditlog=auditlog, trace=tracelib, rpc=rpc, FakeClock=FakeClock,
@@ -37,8 +38,8 @@ PORT = types.SimpleNamespace(auditlog=auditlog, trace=tracelib, rpc=rpc, FakeClo
 BLOB = 64 << 10
 
 # Routes the reference's roles serve and the port's do not yet: the
-# clustermgr's shardnode catalog (ROADMAP §1 item 5), also under the
-# scheduler's cm_ prefix, and the scheduler's scrub (§1 item 6).
+# clustermgr's shardnode catalog (ROADMAP §1 item 2), also under the
+# scheduler's cm_ prefix, and the scheduler's scrub (§1 item 3).
 CM_PENDING = {"alloc_shard_id", "create_space", "get_space", "register_split", "route_key",
               "shardnode_heartbeat", "update_shard_addrs"}
 PENDING = {"clustermgr": CM_PENDING,
@@ -348,15 +349,94 @@ def test_role_route_set_equals_the_reference(ref, traces, still_qos, role_cm, tm
     assert os.path.exists(tmp_path / "port" / "audit" / f"{role}.audit.log")
 
 
-@pytest.mark.parametrize("cfg", [
-    {"role": "clustermgr", "me": "127.0.0.1:1", "peers": ["127.0.0.1:1", "127.0.0.1:2",
-                                                           "127.0.0.1:3"]},
-    {"role": "access", "clustermgr_addr": "127.0.0.1:1", "mq_members": ["127.0.0.1:4"]},
-    {"role": "scheduler", "mq_me": "127.0.0.1:5", "mq_peers": ["127.0.0.1:5", "127.0.0.1:6"]},
-], ids=["clustermgr_peers", "access_mq_members", "scheduler_mq_peers"])
-def test_raft_configs_raise(cfg, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 4"):
-        cmd.run_role(dict(cfg, listen_port=0, device="cpu", data_dir=str(tmp_path / "d")))
+def _free_addr() -> str:
+    return f"127.0.0.1:{free_ports(1)[0]}"
+
+
+def _raft_cfg(case: str, role_cm: str, d) -> dict:
+    """A replicated config with static addresses: a lone member of a
+    3-member clustermgr group, access producing into a bus, or a
+    one-member bus hosted by a scheduler."""
+    me = _free_addr()
+    port = int(me.rsplit(":", 1)[1])
+    if case == "clustermgr_peers":
+        return {"role": "clustermgr", "listen_port": port, "me": me, "data_dir": str(d / "cm"),
+                "peers": [me, _free_addr(), _free_addr()]}
+    if case == "access_mq_members":
+        return {"role": "access", "listen_port": 0, "clustermgr_addr": role_cm,
+                "mq_members": [_free_addr(), _free_addr()], "blob_size": BLOB}
+    return {"role": "scheduler", "listen_port": port, "mq_me": me, "mq_peers": [me],
+            "mq_dir": str(d / "mq"), "data_dir": str(d / "cm")}
+
+
+def _raft_roles(srv, svc, case) -> dict:
+    """What the role's raft half answers: its raft_status, the bus's
+    partitions once each has elected, or the producers' topics."""
+    if case == "clustermgr_peers":
+        return {"raft": http_post(srv.addr, "raft_status", {})[1]["role"]}
+    if case == "access_mq_members":
+        return {q.topic: (type(q).__name__, q.n) for q in (svc.repair_queue, svc.delete_queue)}
+    deadline = time.time() + 15
+    while True:
+        st = http_post(srv.addr, "mq_status", {})[1]
+        roles = {t: [p["role"] for p in st[t]["partitions"]] for t in ("repair", "delete")}
+        if roles == {"repair": ["leader"] * 2, "delete": ["leader"] * 2} or time.time() > deadline:
+            return roles
+
+
+@pytest.mark.parametrize("case", ["clustermgr_peers", "access_mq_members", "scheduler_mq_peers"])
+def test_raft_config_serves_the_reference_routes(ref, traces, still_qos, role_cm, tmp_path,
+                                                case):
+    def run(pkg_cmd, tag, **dev):
+        srv, svc = pkg_cmd.run_role(dict(_raft_cfg(case, role_cm, tmp_path / tag), **dev))
+        try:
+            return _served(srv), _raft_roles(srv, svc, case)
+        finally:
+            if pkg_cmd is cmd:
+                assert cmd.shutdown(srv, svc) == 0
+            else:
+                _ref_close(srv, svc)
+                for n in ("repair_queue", "delete_queue"):
+                    getattr(getattr(svc, n, None), "stop", lambda: None)()
+
+    got, got_raft = run(cmd, "port", device="cpu")
+    want, want_raft = run(ref.cmd, "ref")
+    role = case.split("_")[0]
+    assert got == want - PENDING.get(role, set())
+    if case == "clustermgr_peers":  # a lone member of three: it cannot win an election
+        assert {got_raft["raft"], want_raft["raft"]} <= {"follower", "candidate"}
+    else:
+        assert got_raft == want_raft == {
+            "access_mq_members": {"repair": ("QueueProducer", 2),
+                                  "delete": ("QueueProducer", 2)},
+            "scheduler_mq_peers": {"repair": ["leader"] * 2, "delete": ["leader"] * 2}}[case]
+    if case == "scheduler_mq_peers":
+        assert {r for r in got if r.startswith("raft_")} == {"raft_hb_batch"} | {
+            f"raft_mq_{t}_p{p}_{k}" for t in ("repair", "delete") for p in (0, 1)
+            for k in ("vote", "append", "snapshot")}
+
+
+def test_scheduler_bus_heartbeats_every_topic(tmp_path):
+    """Both topics' groups share the scheduler's one batched-heartbeat
+    route, so no follower of either topic misses its leader's
+    heartbeats (a merge of the two queues' tables would drop the first
+    topic's groups from it)."""
+    me = _free_addr()
+    srv, svc = cmd.run_role({"role": "scheduler", "listen_port": int(me.rsplit(":", 1)[1]),
+                             "mq_me": me, "mq_peers": [me], "mq_dir": str(tmp_path / "mq"),
+                             "data_dir": str(tmp_path / "cm"), "device": "cpu"})
+    try:
+        groups = srv.routes["__raft_groups__"]
+        assert sorted(groups) == [f"mq_{t}_p{p}" for t in ("delete", "repair") for p in (0, 1)]
+        # a heartbeat of a later term to every group: a group the route's
+        # registry misses answers {"ok": False, "term": 0}
+        items = [[gid, {"term": 99, "leader": "x", "prev_index": 0, "prev_term": 0,
+                        "entries": [], "commit": 0}] for gid in sorted(groups)]
+        replies = dict(srv.routes["raft_hb_batch"]({"items": items}, b"")["replies"])
+        assert {gid: (r["ok"], r["term"]) for gid, r in replies.items()} == \
+            {gid: (True, 99) for gid in groups}
+    finally:
+        assert cmd.shutdown(srv, svc) == 0
 
 
 class _Closer:
@@ -574,7 +654,7 @@ def test_launched_cluster_stitches_traces_and_audits_every_call(launched, rng):
 
 def test_launcher_refuses_file_system_roles(tmp_path):
     for topo in ({"metanodes": 3}, {"datanodes": 1, "blobnodes": 1}, {"objectnode": True}):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 9"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 6"):
             deploy.Cluster(topo, str(tmp_path))
     assert not os.listdir(tmp_path)
 
