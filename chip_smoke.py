@@ -57,8 +57,18 @@ replicated repair/delete bus and access producing into it, each a
 process on static ports; PUTs and GETs across a clustermgr leader kill
 (the election timed) and the killed member's restart from its raft WAL,
 degraded GETs with a blobnode process stopped, and the repair backlog
-held across the loss of a bus member. Each phase prints one JSON line;
-any failure, in any rank, raises.
+held across the loss of a bus member. Then the integrity sweep (phase
+``integrity``): in process, with phase ``blob``'s cluster, the
+scheduler's scrub verifies 1 GiB of objects with kernel A as its parity
+recompute, finds 4 planted bitflips, queues repairs of exactly those
+units, and the worker rebuilds them; read-repair, with and without
+``CUBEFS_VERIFY_READS``, and the scrub's doors (``CUBEFS_SCRUB``, a
+brownout, ``CUBEFS_QOS``). Then the metadata shards (phase
+``shardnode``, host only): 3 shardnodes on raft over the native KV store
+take 16,384 items from 8 clients, split a shard, lose a node whose
+replicas the scheduler's shard tasks move to a spare, and restart from
+their directories. Each phase prints one JSON line; any failure, in any
+rank, raises.
 
 The last lines are the kernels' record, the card's name and power limit
 as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -124,6 +134,9 @@ BLOB_MSR = 24 * MIB  # one EC6P6MSR object: three 8 MiB blobs
 BLOB_NODES, BLOB_DISKS = 6, 3  # EC12P4's 16 units and 2 spares
 ROLES_PUTS = 8  # phase roles: 64 MiB objects PUT, read back, read degraded
 RAFT_PUTS = 4  # phase raft: 64 MiB objects PUT on each side of a clustermgr leader kill
+INTEGRITY_OBJECTS = 16  # phase integrity: 64 MiB objects, 1 GiB of user data
+INTEGRITY_GETS = 8  # foreground GETs alone and under a full scrub pass
+SN_ITEMS, SN_VALUE, SN_THREADS = 16384, 1024, 8  # phase shardnode: 16 MiB of 1 KiB items
 # the C and D instantiations the kernels' record reports: (case, extract, probe, grid)
 RECORDED_BM = (("tuning_rows_2x12_B4", "bcast", None, "flat"),
                ("tuning_rows_2x12_B4", "bcast", "nodot", "stripe"))
@@ -545,6 +558,17 @@ def engines_phase(root: str, dev, card: str, *, shard: int = SHARD, blob: int = 
             "service": service, "launches": launches, "checks": checks}
 
 
+def counter(metric, **want) -> dict[str, float]:
+    """A registry metric's series matching ``want``, by their first other label."""
+    names = [n for n in metric.label_names if n not in want]
+    return {k[metric.label_names.index(names[0])]: v for k, v in metric.samples()
+            if all(k[metric.label_names.index(a)] == b for a, b in want.items())}
+
+
+def delta(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0.0) for k, v in after.items() if v != before.get(k, 0.0)}
+
+
 def blob_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = BLOB_PUTS,
                msr_payload: int = BLOB_MSR, blob_size: int = BLOB, reps: int = 3) -> dict:
     """Phase ``blob``: the blob plane's erasure-coded data path, the
@@ -593,15 +617,6 @@ def blob_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = BLOB_PUTS,
 
     def launches_a() -> int:
         return _build.LAUNCHES["gf_apply"]
-
-    def counter(metric, **want) -> dict[str, float]:
-        """The metric's series matching ``want``, by their first other label."""
-        names = [n for n in metric.label_names if n not in want]
-        return {k[metric.label_names.index(names[0])]: v for k, v in metric.samples()
-                if all(k[metric.label_names.index(a)] == b for a, b in want.items())}
-
-    def delta(before: dict, after: dict) -> dict:
-        return {k: v - before.get(k, 0.0) for k, v in after.items() if v != before.get(k, 0.0)}
 
     def steps() -> dict[str, float]:
         return counter(metrics.codec_batch_steps, op="encode")
@@ -1063,6 +1078,24 @@ def raft_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = RAFT_PUTS,
         leaders = [a for a in addrs if (answer(a, "raft_status") or {}).get("role") == "leader"]
         return leaders[0] if len(leaders) == 1 else None
 
+    def on_leader(method: str, args: dict) -> dict:
+        """A gated read's reply from whichever clustermgr leads when it is
+        asked: under the machine's load a heartbeat can come later than a
+        follower's election timeout (0.15-0.30 s), and a re-election moves
+        the leader between finding it and asking it (421)."""
+        return wait_for(lambda: next(filter(None, (answer(a, method, args)
+                                                   for a in cm_addrs)), None),
+                        f"the clustermgr leader's {method}")
+
+    def group_series() -> dict[str, float]:
+        """``raft_series`` summed over the live members: a proposal counts on
+        the member that led when it was made."""
+        total: dict[str, float] = {}
+        for a in cm_addrs:
+            for k, v in (raft_series(a) if answer(a, "raft_status") else {}).items():
+                total[k] = total.get(k, 0.0) + v
+        return total
+
     def timed(label: str, calls: list, nbytes: int) -> list:
         cases[label], out = timed_case(acc, calls, nbytes)
         return out
@@ -1135,13 +1168,19 @@ def raft_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = RAFT_PUTS,
         mode = cm.CodeMode(locs[0]["codemode"])
         tac = cm.tactic(mode)
         sl0 = locs[0]["slices"][0]
-        vol0 = rpc_post(leader, "get_volume", {"vid": sl0["vid"]})[1]["volume"]
+        vol0 = on_leader("get_volume", {"vid": sl0["vid"]})["volume"]
         parity_equal = parity_equals_plain(vol0, sl0["min_bid"], tac.n, tac.m)
 
         # -- the clustermgr leader killed: the election ------------------------
+        # the leader as it stands now: the startup's load may have moved it
+        first_leader = leader
+        leader, old_term = wait_for(lambda: next(
+            ((a, st["term"]) for a in cm_addrs
+             if (st := answer(a, "raft_status")) and st["role"] == "leader"), None),
+            "the clustermgr leader before the kill")
         old = next(n for n, c in cm_cfgs.items() if c["me"] == leader)
-        old_term = answer(leader, "raft_status")["term"]
-        raft_counters = {"leader_before_kill": raft_series(leader)}
+        raft_counters = {"leader_before_kill": raft_series(leader),
+                         "group_before_kill": group_series()}
         t = time.perf_counter()
         kill(old)
         rest = [a for a in cm_addrs if a != leader]
@@ -1158,17 +1197,19 @@ def raft_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = RAFT_PUTS,
         start(old, "clustermgr", cm_cfgs[old])
         up([old])
         want = answer(new_leader, "raft_status")
-        back = wait_for(lambda: (lambda s: s if s and s["applied"] >= want["commit"] else None)(
+        back = wait_for(lambda: (lambda s: s if s and s["applied"] >= want["commit"]
+                                 and s["role"] == "follower" else None)(
             answer(leader, "raft_status")), "the restarted member to catch up")
         catch_up_s = time.perf_counter() - t
         reads = [("stat", {}), ("scope_watermark", {"name": "bid"}), ("list_config", {}),
                  ("kv_list", {}), ("get_service", {"name": "proxy"})]
-        reads_equal_leader = all(answer(leader, m, a) == answer(new_leader, m, a)
+        leader_now = wait_for(lambda: leader_of(cm_addrs), "the clustermgr leader")
+        reads_equal_leader = all(answer(leader, m, a) == answer(leader_now, m, a)
                                  for m, a in reads)
         redirect = rpc_post(leader, "get_volume", {"vid": sl0["vid"]})[:2]
 
         # -- one blobnode process stopped: degraded GETs -----------------------
-        vols = rpc_post(new_leader, "list_volumes", {})[1]["volumes"]
+        vols = on_leader("list_volumes", {})["volumes"]
         held = {a: {vid: [u["index"] for u in v["units"] if u["node_addr"] == a]
                     for vid, v in vols.items()} for a in node_addrs}
         victim = max((a for a in node_addrs
@@ -1187,7 +1228,9 @@ def raft_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = RAFT_PUTS,
         # -- the bus: every member's backlog, then one member killed -----------
         put_events = wait_for(lambda: (lambda b: b[0] if b[0] and len(set(b)) == 1 else None)(
             [backlog(a) for a in sched_addrs]), "the repair events on every bus member")
-        views_before = {a: bus(a) for a in sched_addrs}
+        views_before = wait_for(lambda: (lambda v: v if all(v.values()) and any(
+            v[a]["repair"][0][0] == "leader" for a in v) else None)(
+            {a: bus(a) for a in sched_addrs}), "the repair topic's leader")
         bus_leader = next(a for a in sched_addrs if views_before[a]["repair"][0][0] == "leader")
         killed_sched = scheds[sched_addrs.index(bus_leader)]
         codes[killed_sched] = kill(killed_sched)
@@ -1224,11 +1267,11 @@ def raft_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = RAFT_PUTS,
         "restarted_member_caught_up": back["applied"] >= want["commit"]
         and back["role"] == "follower",
         "restarted_member_reads_equal_leader": reads_equal_leader,
-        "restarted_member_redirects": redirect == (421, {"error": f"leader={new_leader}"}),
+        "restarted_member_redirects": redirect == (421, {"error": f"leader={leader_now}"}),
         "repair_events_put": 0 < put_events <= lost_reads,
         "survivors_hold_every_event": survivor_backlogs == [put_events] * 2,
-        "raft_counters_scraped": len(raft_counters["leader_before_kill"]) == 3
-        and raft_counters["leader_before_kill"]["cubefs_raft_proposals_total"]
+        "raft_counters_scraped": len(raft_counters["group_before_kill"]) == 3
+        and raft_counters["group_before_kill"]["cubefs_raft_proposals_total"]
         >= BLOB_NODES * BLOB_DISKS
         and raft_counters["leader_at_end"].get("cubefs_raft_wal_fsyncs_total", 0) > 0,
         "every_role_exited_0": all(rc == 0 for n, rc in codes.items()
@@ -1243,7 +1286,8 @@ def raft_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = RAFT_PUTS,
                         "put_bytes": put, "puts": 2 * n_puts, "codemode": mode.name,
                         "blob_shard": -(-blob_size // tac.n)},
             "cases": cases, "election_s": election_s, "catch_up_s": catch_up_s,
-            "leaders": {"before": leader, "after": new_leader, "follower_pointed_at": follower,
+            "leaders": {"first": first_leader, "before": leader, "after": new_leader,
+                        "at_catch_up": leader_now, "follower_pointed_at": follower,
                         "terms": [old_term, new_term]},
             "restarted": {"status": back, "leader_commit": want["commit"]},
             "raft_counters": raft_counters,
@@ -1252,6 +1296,550 @@ def raft_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = RAFT_PUTS,
                     "survivor_view": polled},
             "degraded": {"stopped": vname, "blobs_lost_a_data_unit": lost_blobs},
             "exit_codes": codes, "launches": launches, "checks": checks}
+
+
+def integrity_phase(dev, card: str, *, put: int = BLOB_PUT, n_objects: int = INTEGRITY_OBJECTS,
+                    blob_size: int = BLOB, n_gets: int = INTEGRITY_GETS) -> dict:
+    """Phase ``integrity``: the blob plane's integrity sweep on the card,
+    in process, with the cluster of phase ``blob`` (6 blobnodes x 3 disks,
+    8 MiB blobs, EC12P4 by policy) and access, the scheduler and the
+    repair worker on engine ``cuda``, so every parity recompute of the
+    scrub is one step of kernel A (``StagedEngine``: the group's stripes
+    copied to the card, A, the parity copied back).
+
+    ``n_objects`` PUTs of ``put`` bytes; a clean full pass
+    (``Scheduler.make_scrubber().run_full_pass()``): its wall seconds, the
+    shard bytes it verified per second, the stripes it checked, A's
+    launches and the leg that served its steps, the outcomes it counted;
+    4 bitflips planted (``faultinject.FaultPlan.plant_rot``) in stripes of
+    different volumes where there are enough, 2 in data units and 2 in
+    parity units, a pass that must name exactly the volumes with rot and
+    queue repairs of exactly the planted units, the worker's drain, each
+    rebuilt unit held against what the PUT wrote, and a second pass that
+    must be clean; read-repair of a data shard whose read refuses (its
+    GET exact, the shard rewritten, healed by ``read``), then the same
+    with ``CUBEFS_VERIFY_READS=0`` (detected, not rewritten); the doors
+    (``CUBEFS_SCRUB=0``, a pinned brownout, the brownout under
+    ``CUBEFS_QOS=0``); and ``n_gets`` GETs alone and while a full pass
+    runs in another thread (medians only). The QoS gate's burn signal is
+    pinned quiet for the phase (the brownout is pinned where it is
+    tested), as the tests pin it: the earlier phases' slow calls would
+    otherwise shed the scrub. Returns the record with ``checks`` and
+    ``launches`` (the path's)."""
+    from cubefs_tpu_torch.blob.access import AccessConfig, AccessHandler
+    from cubefs_tpu_torch.blob.blobnode import BlobNode
+    from cubefs_tpu_torch.blob.clustermgr import ClusterMgr
+    from cubefs_tpu_torch.blob.mq import MessageQueue
+    from cubefs_tpu_torch.blob.scheduler import Scheduler
+    from cubefs_tpu_torch.blob.worker import RepairWorker
+    from cubefs_tpu_torch.codec import codemode as cm
+    from cubefs_tpu_torch.codec import engine as engines
+    from cubefs_tpu_torch.ops import _build
+    from cubefs_tpu_torch.utils import faultinject as fi
+    from cubefs_tpu_torch.utils import metrics, qos, rpc
+
+    class Quiet:  # the gate's burn-rate source, pinned: no path browns out by itself
+        def snapshot(self):
+            return {}
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 13)
+    print(json.dumps({"phase": "integrity", "card": card}), flush=True)
+    _build.reset_launches()
+    workdir = tempfile.mkdtemp(prefix="cubefs-smoke-integrity-")
+    doors = ("CUBEFS_SCRUB", "CUBEFS_QOS", "CUBEFS_VERIFY_READS")
+    env = {v: os.environ.pop(v, None) for v in doors}
+    gate = (qos.DEFAULT._tracker, qos.DEFAULT._levels, qos.DEFAULT._last_refresh)
+    qos.DEFAULT._tracker, qos.DEFAULT._levels = Quiet(), {}
+    qos.DEFAULT._last_refresh = float("-inf")
+    cases: dict[str, dict] = {}
+    nodes: list = []
+    acc = None
+    verdicts: dict = {}
+
+    def node_of(u):
+        return nodes[int(u.node_addr.removeprefix("node"))]
+
+    def unit_shards(vid: int, idx: int) -> dict:
+        u = cmgr.get_volume(vid).units[idx]
+        n = node_of(u)
+        return {bid: n.get_shard(u.disk_id, u.chunk_id, bid)[0]
+                for bid, _, _ in n.list_chunk(u.disk_id, u.chunk_id)}
+
+    def detected(source: str) -> float:
+        return metrics.integrity_corruptions_detected.value(plane="blob", source=source)
+
+    def healed(source: str) -> float:
+        return metrics.integrity_corruptions_healed.value(plane="blob", source=source)
+
+    def scrub_pass(label: str, s) -> dict:
+        a0, steps0 = _build.LAUNCHES["gf_apply"], counter(metrics.codec_batch_steps, op="encode")
+        items0, det0 = counter(metrics.scrub_items, plane="blob"), detected("scrub")
+        verdicts.clear()
+        t = time.perf_counter()
+        res = s.run_full_pass()
+        secs = time.perf_counter() - t
+        cases[label] = {"result": res, "seconds": secs, "stripes": stripes,
+                        "at_rest_bytes": at_rest, "gib_s": at_rest / secs / 2**30,
+                        "a_launches": _build.LAUNCHES["gf_apply"] - a0,
+                        "encode_steps": delta(steps0, counter(metrics.codec_batch_steps,
+                                                              op="encode")),
+                        "last_dispatch": dict(engines.last_dispatch),
+                        "items": delta(items0, counter(metrics.scrub_items, plane="blob")),
+                        "detected": detected("scrub") - det0, "verdicts": dict(verdicts)}
+        return cases[label]
+
+    def gets(label: str, objs: list) -> list:
+        ms, out = [], []
+        for loc, _ in objs:
+            t = time.perf_counter()
+            out.append(acc.get(loc))
+            ms.append((time.perf_counter() - t) * 1e3)
+        cases[label] = {"count": len(objs), "median_ms": statistics.median(ms),
+                        "equal": all(g == d for g, (_, d) in zip(out, objs))}
+        return out
+
+    try:
+        cmgr = ClusterMgr()
+        cmc, pool = rpc.Client(cmgr), rpc.NodePool()
+        for i in range(BLOB_NODES):
+            node = BlobNode(i, [os.path.join(workdir, f"n{i}d{d}") for d in range(BLOB_DISKS)],
+                            cmc, addr=f"node{i}", device=dev, engine="cuda")
+            node.register()
+            node.send_heartbeat()
+            pool.bind(node.addr, node)
+            nodes.append(node)
+        repair_q = MessageQueue()
+        acc = AccessHandler(cmc, pool, AccessConfig(blob_size=blob_size, engine="cuda",
+                                                    device=dev), repair_queue=repair_q)
+        sched = Scheduler(cmgr, repair_queue=repair_q, node_pool=pool, device=dev,
+                          engine="cuda")
+        wk = RepairWorker(rpc.Client(sched), cmc, pool, engine="cuda", device=dev)
+
+        # -- the objects, and what the scrub has to read ----------------------
+        payloads = [rng.integers(0, 256, put, dtype=np.uint8).tobytes()
+                    for _ in range(n_objects)]
+        t = time.perf_counter()
+        objs = [(acc.put(p), p) for p in payloads]
+        put_s = time.perf_counter() - t
+        mode = cm.CodeMode(objs[0][0].codemode)
+        tac = cm.tactic(mode)
+        vids = sorted({sl.vid for loc, _ in objs for sl in loc.slices})
+        bids = {vid: sorted(b for b, _, _ in node_of(cmgr.get_volume(vid).units[0]).list_chunk(
+            cmgr.get_volume(vid).units[0].disk_id, cmgr.get_volume(vid).units[0].chunk_id))
+            for vid in vids}
+        stripes = sum(min(len(b), 4096) for b in bids.values())
+        at_rest = sum(size for vid in vids for u in cmgr.get_volume(vid).units
+                      for _, size, _ in node_of(u).list_chunk(u.disk_id, u.chunk_id))
+        s = sched.make_scrubber()
+        unit = s.scrub_unit
+        s.scrub_unit = lambda vid: verdicts.setdefault(vid, unit(vid))
+
+        # -- a clean pass ------------------------------------------------------
+        clean = scrub_pass("clean_pass", s)
+
+        # -- 4 bitflips: 2 data units, 2 parity units, in 4 stripes -----------
+        targets = [(vids[i % len(vids)], idx) for i, idx in enumerate((2, 7, tac.n, tac.n + 3))]
+        planted = []
+        originals = {}
+        plan = fi.FaultPlan(seed=SEED + 13)
+        fi.install(plan)
+        for i, (vid, idx) in enumerate(targets):
+            originals[(vid, idx)] = unit_shards(vid, idx)
+            bid = bids[vid][(i // len(vids)) % len(bids[vid])]  # another stripe per volume
+            u = cmgr.get_volume(vid).units[idx]
+            plan.plant_rot(u.node_addr, u.disk_id, f"c{u.chunk_id}:b{bid}", kind="bitflip")
+            planted.append({"vid": vid, "unit": idx, "bid": bid, "disk": u.disk_id})
+        rot = scrub_pass("rot_pass", s)
+        queued = sorted((t["vid"], t["unit_index"]) for t in sched.tasks.values()
+                        if t["state"] == "pending")
+        a0, t = _build.LAUNCHES["gf_apply"], time.perf_counter()
+        while wk.run_once():
+            pass
+        cases["repair"] = {"tasks": len(queued), "completed": wk.completed, "failed": wk.failed,
+                           "seconds": time.perf_counter() - t,
+                           "a_launches": _build.LAUNCHES["gf_apply"] - a0,
+                           "rebuilt_bytes": sum(len(b) for d in originals.values()
+                                                for b in d.values())}
+        rebuilt_equal = all(
+            unit_shards(vid, idx) == want and cmgr.get_volume(vid).units[idx].disk_id
+            != next(p["disk"] for p in planted if (p["vid"], p["unit"]) == (vid, idx))
+            for (vid, idx), want in originals.items())
+        second = scrub_pass("second_pass", s)
+        gets("get_after_repair", objs)
+        fi.uninstall()
+
+        # -- read-repair, then the same with CUBEFS_VERIFY_READS=0 ------------
+        sl = objs[0][0].slices[0]
+        rr = {}
+        for door, idx in (("1", 3), ("0", 4)):
+            os.environ["CUBEFS_VERIFY_READS"] = door
+            plan = fi.FaultPlan(seed=SEED + 14)
+            fi.install(plan)
+            want = unit_shards(sl.vid, idx)[sl.min_bid]
+            u = cmgr.get_volume(sl.vid).units[idx]
+            plan.plant_rot(u.node_addr, u.disk_id, f"c{u.chunk_id}:b{sl.min_bid}",
+                           kind="stale_crc")
+            d0, h0, a0 = detected("read"), healed("read"), _build.LAUNCHES["gf_apply"]
+            got = acc.get(objs[0][0])
+            rr[door] = {"equal": got == objs[0][1], "detected": detected("read") - d0,
+                        "healed": healed("read") - h0, "rot_left": plan.rot_remaining(),
+                        "a_launches": _build.LAUNCHES["gf_apply"] - a0}
+            fi.uninstall()
+            rr[door]["shard_equal"] = unit_shards(sl.vid, idx)[sl.min_bid] == want
+            del os.environ["CUBEFS_VERIFY_READS"]
+        cases["read_repair"], cases["read_repair_door_off"] = rr["1"], rr["0"]
+
+        # -- foreground GETs alone, then under a full pass --------------------
+        fg = objs[:n_gets]
+        gets("gets_alone", fg)
+        under: dict = {}
+        runner = threading.Thread(target=lambda: under.update(scrub_pass("pass_under_gets", s)))
+        runner.start()
+        gets("gets_under_scrub", fg)
+        runner.join()
+
+        # -- the doors --------------------------------------------------------
+        os.environ["CUBEFS_SCRUB"] = "0"
+        door_scrub = s.run_once()
+        del os.environ["CUBEFS_SCRUB"]
+        qos.DEFAULT.force_level("blob.get", 1)
+        door_brownout = s.run_once(max_units=1)
+        os.environ["CUBEFS_QOS"] = "0"
+        door_qos_off = s.run_once(max_units=1)
+        del os.environ["CUBEFS_QOS"]
+        qos.DEFAULT.force_level("blob.get", None)
+        status = sched.rpc_scrub_status({}, None)["scrub"]
+        launches = dict(_build.LAUNCHES)
+    finally:
+        fi.uninstall()
+        qos.DEFAULT.force_level("blob.get", None)
+        qos.DEFAULT._tracker, qos.DEFAULT._levels, qos.DEFAULT._last_refresh = gate
+        for v, old in env.items():
+            if old is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = old
+        if acc is not None:
+            acc._pool.shutdown(wait=True)
+        for node in nodes:
+            node.stop()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    rot_vids = sorted({vid for vid, _ in targets})
+    scrub_launches = sum(cases[k]["a_launches"]
+                         for k in ("clean_pass", "rot_pass", "second_pass", "pass_under_gets"))
+    checks = {
+        "put_codemode_ec12p4": mode == cm.CodeMode.EC12P4,
+        "clean_pass_all_clean": clean["result"]["completed_pass"]
+        and clean["result"]["scanned"] == len(vids) == clean["items"].get("clean")
+        and clean["result"]["corrupt"] == clean["result"]["skipped"] == 0,
+        "clean_pass_launched_a_on_cuda": clean["a_launches"] > 0
+        and clean["encode_steps"].get("cuda", 0) > 0
+        and clean["last_dispatch"].get("served") == "cuda",
+        "rot_pass_names_the_volumes": sorted(v for v, o in rot["verdicts"].items()
+                                             if o == "corrupt") == rot_vids
+        and rot["result"]["corrupt"] == len(rot_vids),
+        "rot_detected_4": rot["detected"] == 4,
+        "rot_tasks_name_the_planted_units": queued == sorted(targets),
+        "repair_all_done": cases["repair"]["completed"] == len(queued) == 4
+        and cases["repair"]["failed"] == 0,
+        "rebuilt_equal_put": rebuilt_equal,
+        "second_pass_clean": second["result"]["corrupt"] == 0
+        and second["result"]["skipped"] == 0 and second["result"]["completed_pass"],
+        "get_after_repair.equal": cases["get_after_repair"]["equal"],
+        "read_repair_heals": rr["1"]["equal"] and rr["1"]["healed"] == 1
+        and rr["1"]["detected"] >= 1 and rr["1"]["rot_left"] == 0 and rr["1"]["shard_equal"],
+        "verify_reads_off_detects_only": rr["0"]["equal"] and rr["0"]["healed"] == 0
+        and rr["0"]["detected"] >= 1 and rr["0"]["rot_left"] == 1,
+        "gets_equal": cases["gets_alone"]["equal"] and cases["gets_under_scrub"]["equal"],
+        "scrub_door_closed": door_scrub.get("door") == "closed" and door_scrub["scanned"] == 0,
+        "brownout_sheds": door_brownout.get("suppressed") is True
+        and door_brownout["scanned"] == 0,
+        "qos_off_does_not_shed": "suppressed" not in door_qos_off
+        and door_qos_off["scanned"] == 1,
+        "scrub_launched_a": scrub_launches > 0,
+    }
+    return {"phase": "integrity", "card": card, "seconds": time.perf_counter() - t_phase,
+            "cluster": {"nodes": BLOB_NODES, "disks_per_node": BLOB_DISKS,
+                        "blob_size": blob_size, "put_bytes": put, "objects": n_objects,
+                        "codemode": mode.name, "blob_shard": -(-blob_size // tac.n),
+                        "volumes": len(vids), "stripes": stripes, "at_rest_bytes": at_rest},
+            "put_s": put_s, "planted": planted, "queued": queued, "cases": cases,
+            "doors": {"scrub_off": door_scrub, "brownout": door_brownout,
+                      "brownout_qos_off": door_qos_off},
+            "status": status, "scrub_launches": scrub_launches, "launches": launches,
+            "checks": checks}
+
+
+def shardnode_phase(dev, card: str, *, items: int = SN_ITEMS, value: int = SN_VALUE,
+                    threads: int = SN_THREADS, n_shards: int = 4) -> dict:
+    """Phase ``shardnode``: the blob plane's metadata shards, on the host
+    (no kernel; the native KV store, ``csrc/host/kvstore.cc``, is built
+    and run on this machine). 3 ``ShardNode``s, each behind its own
+    ``RpcServer`` on 127.0.0.1 with a data directory, and a spare; a
+    clustermgr catalog space of ``n_shards`` shards, each a raft group on
+    the 3. The clients call the nodes over HTTP; raft between the nodes
+    and the scheduler's worker ride direct calls on one ``NodePool``, as
+    the reference's shardnode tests wire them: over HTTP a raft message
+    travels in one header, which Python's HTTP server caps at 64 KiB, and
+    a new replica's catch-up here (thousands of 1 KiB entries, or a
+    snapshot of them) is one message (ROADMAP.md §3). ``threads``
+    clients put ``items`` values of ``value`` bytes through a
+    leader-following client routed by the catalog, then get
+    every item and list a prefix; one shard splits at its median and the
+    catalog registers it (``route_key`` sends the upper half to the
+    child; every group's term stays flat for 5 s after); one node stops
+    (its server, the connections it accepted and its groups: a process's
+    death), the clustermgr suspects it after its heartbeat window, the
+    scheduler queues a ``shard_repair`` per shard it held, and the
+    worker's swaps move its replicas to the spare; every item is read
+    from the new replica sets, the live nodes restart from their
+    directories, and every item is read again. ``dev`` is the
+    scheduler's and the worker's codec device (they run no kernel
+    here). Returns the record with ``checks``."""
+    import socket
+
+    from cubefs_tpu_torch.blob.clustermgr import ClusterMgr
+    from cubefs_tpu_torch.blob.scheduler import Scheduler
+    from cubefs_tpu_torch.blob.shardnode import ShardNode
+    from cubefs_tpu_torch.blob.worker import RepairWorker
+    from cubefs_tpu_torch.utils import rpc
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 15)
+    print(json.dumps({"phase": "shardnode", "card": card}), flush=True)
+    workdir = tempfile.mkdtemp(prefix="cubefs-smoke-shardnode-")
+    served: dict[str, tuple] = {}  # addr -> (ShardNode, RpcServer, accepted sockets)
+    leaders: dict[int, str] = {}
+    cases: dict[str, dict] = {}
+    hb_stop = threading.Event()
+
+    def free_port() -> int:
+        with socket.socket() as s_:
+            s_.bind(("127.0.0.1", 0))
+            return s_.getsockname()[1]
+
+    addrs = [f"127.0.0.1:{free_port()}" for _ in range(4)]  # 3 replicas and a spare
+    replicas, spare = addrs[:3], addrs[3]
+    pool = rpc.NodePool()  # raft's transport between the nodes, and the worker's
+
+    def start(addr: str) -> None:
+        i = addrs.index(addr)
+        sn = ShardNode(i, addr=addr, node_pool=pool, data_dir=os.path.join(workdir, f"sn{i}"))
+        pool.bind(addr, sn)
+        srv = rpc.RpcServer(sn, port=int(addr.rsplit(":", 1)[1]), service="shardnode")
+        conns: list = []
+        accept = srv._httpd.process_request
+
+        def tracked(request, client_address):
+            conns.append(request)
+            accept(request, client_address)
+
+        srv._httpd.process_request = tracked
+        served[addr] = (sn, srv.start(), conns)
+
+    def stop(addr: str) -> None:
+        """A process's death: its server, the connections it accepted (whose
+        handler threads would go on serving the stopped node) and its groups."""
+        sn, srv, conns = served.pop(addr)
+        srv.stop()
+        for c in conns:
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass  # its peer closed it
+        pool.bind(addr, object())  # a dead target: every call to it fails
+        sn.stop()
+
+    def heartbeats() -> None:
+        while not hb_stop.wait(1.0):
+            for sn, _, _ in list(served.values()):
+                sn.send_heartbeat(cmc)
+
+    def wait_for(cond, what: str, timeout: float = 60.0):
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            got = cond()
+            if got:
+                return got
+            time.sleep(0.05)
+        raise AssertionError(f"phase shardnode: timed out waiting for {what}")
+
+    def kv(method: str, shard: dict, args: dict, body: bytes = b"", timeout: float = 60.0):
+        """One call on the shard's leader: a 421 names it, a member that is
+        down or not yet elected passes the call to the next."""
+        sid, members = shard["shard_id"], shard["addrs"]
+        addr = leaders.get(sid, members[0])
+        deadline = time.perf_counter() + timeout
+        for i in itertools.count(1):
+            leader = ""
+            try:
+                out = rpc.Client(addr, follow_redirects=False).call(
+                    method, dict(args, shard_id=sid), body, timeout=10.0)
+                leaders[sid] = addr
+                return out
+            except rpc.RpcError as e:
+                if e.code not in (421, 404, 503):
+                    raise
+                leader = e.message.removeprefix("leader=").strip() if e.code == 421 else ""
+            except OSError:
+                pass
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"phase shardnode: {method} on shard {sid}")
+            addr = leader if leader in members else members[i % len(members)]
+            if not leader:
+                time.sleep(0.05)
+
+    def route(key: str) -> dict:
+        return cmgr.route_key("meta", key)
+
+    def timed_ops(label: str, fn) -> list:
+        lat = [0.0] * items
+
+        def one(j: int):
+            t = time.perf_counter()
+            out = fn(j)
+            lat[j] = (time.perf_counter() - t) * 1e3
+            return out
+
+        t = time.perf_counter()
+        with ThreadPoolExecutor(threads) as ex:
+            out = list(ex.map(one, range(items)))
+        wall = time.perf_counter() - t
+        ranked = sorted(lat)
+        cases[label] = {"ops": items, "threads": threads, "seconds": wall,
+                        "ops_s": items / wall, "p50_ms": statistics.median(lat),
+                        "p99_ms": ranked[int(0.99 * (items - 1))]}
+        return out
+
+    def get_all(label: str) -> bool:
+        got = timed_ops(label, lambda j: kv("kv_get", route(keys[j]), {"key": keys[j]})[1])
+        cases[label]["equal"] = all(g == values[j * value:(j + 1) * value].tobytes()
+                                    for j, g in enumerate(got))
+        return cases[label]["equal"]
+
+    def terms() -> dict:
+        return {(a, sid): r.status()["term"] for a, (sn, _, _) in served.items()
+                for sid, r in sn.rafts.items()}
+
+    keys = [f"{int(h):04x}/obj{j:05d}" for j, h in enumerate(rng.integers(0, 1 << 16, items))]
+    values = rng.integers(0, 256, items * value, dtype=np.uint8)
+    hb = threading.Thread(target=heartbeats, daemon=True)
+    try:
+        t = time.perf_counter()
+        cmgr = ClusterMgr()
+        cmc = rpc.Client(cmgr)
+        for a in addrs:
+            start(a)
+            cmgr.register_service("shardnode", a)
+            cmgr.shardnode_heartbeat(a)
+        hb.start()
+        space = cmgr.create_space("meta", n_shards, replicas)
+        for sh in space:
+            for a in replicas:
+                rpc.Client(a, follow_redirects=False).call("create_shard", {
+                    "shard_id": sh["shard_id"], "start": sh["start"], "end": sh["end"],
+                    "peers": replicas})
+        for sh in space:
+            kv("shard_stat", sh, {})
+            wait_for(lambda sh=sh: any(served[a][0].rafts[sh["shard_id"]].status()["role"]
+                                       == "leader" for a in replicas), "every shard's leader")
+        startup_s = time.perf_counter() - t
+
+        # -- puts, gets, a prefix ---------------------------------------------
+        timed_ops("put", lambda j: kv("kv_put", route(keys[j]), {"key": keys[j]},
+                                      values[j * value:(j + 1) * value].tobytes()))
+        get_all("get")
+        prefix = keys[0][:2]
+        listed = kv("kv_list", route(prefix), {"prefix": prefix, "limit": items})[0]["keys"]
+        list_equal = listed == sorted(k for k in keys if k.startswith(prefix))
+
+        # -- a split, registered with the catalog -----------------------------
+        parent = space[0]
+        child = cmgr.alloc_shard_id()
+        t = time.perf_counter()
+        split = kv("shard_split", parent, {"child_id": child})[0]
+        cmgr.register_split("meta", parent["shard_id"], child, split["split_key"])
+        wait_for(lambda: all(child in served[a][0].shards and served[a][0].shards[
+            parent["shard_id"]].end == split["split_key"] for a in replicas),
+            "the split on every replica")
+        wait_for(lambda: any(served[a][0].rafts[child].status()["role"] == "leader"
+                             for a in replicas), "the child's leader")
+        split_s = time.perf_counter() - t
+        upper = [k for k in keys if split["split_key"] <= k
+                 and (not parent["end"] or k < parent["end"])]
+        lower = [k for k in keys if parent["start"] <= k < split["split_key"]]
+        routed = ({route(k)["shard_id"] for k in upper} == {child}
+                  and {route(k)["shard_id"] for k in lower} == {parent["shard_id"]})
+        terms_after_split = terms()
+        time.sleep(5.0)
+        terms_flat = terms() == terms_after_split
+
+        # -- one node stopped: the shard tasks move its replicas -------------
+        victim = replicas[1]
+        held = sorted(sid for sid in served[victim][0].rafts)
+        t_stop = time.perf_counter()
+        stop(victim)
+        suspected = wait_for(lambda: cmgr.suspect_dead_shardnodes(), "the stopped node suspected",
+                             timeout=cmgr.HEARTBEAT_TIMEOUT + 30)
+        sched = Scheduler(cmgr, node_pool=pool, device=dev)
+        wk = RepairWorker(rpc.Client(sched), cmc, pool, device=dev)
+        collected = sched.collect_dead_shardnodes()
+        requeued = sched.repair_shardnode(victim)  # idempotent: the same tasks
+        tasks = [t_ for t_ in sched.tasks.values() if t_["type"] == "shard_repair"]
+        while wk.run_once():
+            pass
+        swap_s = time.perf_counter() - t_stop
+        live = [spare if a == victim else a for a in replicas]
+        catalog = cmgr.snapshot_spaces()["meta"]
+        repointed = all(sh["addrs"] == live for sh in catalog)
+        leaders.clear()
+        get_all("get_after_swap")
+
+        def caught_up() -> bool:
+            counts = {a: {sid: served[a][0].shards[sid].count() for sid in held}
+                      for a in live}
+            return all(c == counts[live[0]] for c in counts.values()) and \
+                sum(counts[spare].values()) == items
+
+        wait_for(caught_up, "the spare to hold every item")
+
+        # -- every live node restarted from its directory --------------------
+        t = time.perf_counter()
+        for a in live:
+            stop(a)
+        for a in live:
+            start(a)
+        leaders.clear()
+        restart_s = time.perf_counter() - t
+        get_all("get_after_restart")
+    finally:
+        hb_stop.set()
+        for a in list(served):
+            stop(a)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    checks = {
+        "get.equal": cases["get"]["equal"],
+        "list_prefix_equal": list_equal,
+        "split_registered_and_routed": routed and split["child_id"] == child,
+        "terms_flat_after_split": terms_flat,
+        "suspected_the_stopped_node": suspected == [victim] and collected == [victim],
+        "one_task_per_shard_held": len(tasks) == len(held) > 0 and requeued == len(held),
+        "swaps_done": wk.completed == len(tasks) and wk.failed == 0,
+        "catalog_repointed_to_spare": repointed,
+        "get_after_swap.equal": cases["get_after_swap"]["equal"],
+        "get_after_restart.equal": cases["get_after_restart"]["equal"],
+    }
+    return {"phase": "shardnode", "card": card, "seconds": time.perf_counter() - t_phase,
+            "cluster": {"nodes": 3, "spare": 1, "shards": n_shards, "items": items,
+                        "value_bytes": value, "threads": threads,
+                        "item_bytes": items * value, "replicated_bytes": 3 * items * value},
+            "startup_s": startup_s, "cases": cases, "split": dict(split, seconds=split_s),
+            "stopped": victim, "shards_held": held, "stop_to_last_swap_s": swap_s,
+            "restart_s": restart_s, "catalog": catalog,
+            "checks": checks}
 
 
 def main() -> int:
@@ -2256,7 +2844,24 @@ def main() -> int:
     if failed:
         raise AssertionError(f"raft checks failed: {failed}")
 
-    # -- 15. the sharded step: 8 ranks over torch.distributed ----------------
+    # -- 15. the integrity sweep: the scheduler's scrub, A its parity verifier
+    # In process, on engine cuda. Counts from 0: A only.
+    torch.cuda.empty_cache()
+    integrity = integrity_phase(dev, card)
+    emit(integrity)
+    failed = [k for k, v in integrity["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"integrity checks failed: {failed}")
+
+    # -- 16. the metadata shards: the shardnode on raft over the KV store ----
+    # Host work only: no kernel runs here.
+    shards = shardnode_phase(dev, card)
+    emit(shards)
+    failed = [k for k, v in shards["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"shardnode checks failed: {failed}")
+
+    # -- 17. the sharded step: 8 ranks over torch.distributed ----------------
     # Built above, in this process: the ranks find the libraries and run
     # no nvcc. Every rank runs A and B on its own block; the collectives
     # go through gloo, which stages CUDA buffers through host memory and
@@ -2279,7 +2884,7 @@ def main() -> int:
     if sh_bad:
         raise AssertionError(f"sharded step checks failed: {sh_bad}")
 
-    # -- 16. the kernels' record --------------------------------------------
+    # -- 18. the kernels' record --------------------------------------------
     gf_main, crc_main = gf_results[0], crc_results[0]
     bm_main, probe_main = (next(x for x in bm_results
                                 if (x["case"], x["extract"], x["probe"], x["grid"]) == key)
@@ -2292,6 +2897,8 @@ def main() -> int:
          "blob_launches": blob["launches"]["gf_apply"],
          "roles_launches": roles["launches"]["gf_apply"],
          "raft_launches": replicated["launches"]["gf_apply"],
+         "integrity_launches": integrity["launches"]["gf_apply"],
+         "integrity_scrub_launches": integrity["scrub_launches"],
          "equal": gf_main["equal"],
          "max_abs_err": gf_main["max_abs_err"], "ms": gf_main["ms"],
          "device_ms": gf_main["device_ms"], "plain_ms": gf_main["plain_ms"],

@@ -22,6 +22,7 @@ stack and each degraded stripe cross to the card in one copy each way.
 from __future__ import annotations
 
 import contextvars
+import os
 import time
 import uuid
 import zlib
@@ -392,7 +393,12 @@ class AccessHandler:
         — the caller already has good bytes, so a failed rewrite only
         counts a metric and the queued shard_repair still covers it.
         Only CRC refusals qualify: an absent or unreachable shard is a
-        repair-queue problem, rewriting it here would race the repairer."""
+        repair-queue problem, rewriting it here would race the repairer.
+        Door: CUBEFS_VERIFY_READS=0 skips the rewrite (detection still
+        409s; FSM-digest-identical because no FSM records are
+        written)."""
+        if os.environ.get("CUBEFS_VERIFY_READS", "1") == "0":
+            return
         for i, data in sorted(repaired.items()):
             if getattr(errs.get(i), "code", None) != 409:
                 continue

@@ -8,14 +8,9 @@ pluggable so a consensus layer can replicate the apply stream.
 
 The port's copy of ``cubefs_tpu/blob/clustermgr.py``: disks, volumes,
 chunk ids, bid scopes, unit repointing, config and kv, persisted in the
-reference's state and wal format. The shardnode catalog's state
-(``spaces``, the next shard id) is carried through snapshots and its
-WAL records are applied (``create_space``, ``alloc_shard``,
-``register_split``, ``update_shard_addrs``), so state the reference
-wrote opens here and the reverse; of its proposers only
-``update_shard_addrs`` is here (the scheduler completes a shard task
-with it). The other proposers and the space and shard routes wait for
-the port's shardnode.
+reference's state and wal format, and the shardnode catalog (spaces,
+shard ids, splits, replica sets, shardnode liveness) with its routes.
+State the reference wrote opens here and the reverse.
 """
 
 from __future__ import annotations
@@ -54,8 +49,9 @@ class ClusterMgr(ReplicatedFsm):
         # "bid" is seeded from the legacy counter on first use
         self.scopes: dict[str, int] = {}
         # shardnode catalog (clustermgr/catalog role): space -> sorted
-        # [{shard_id, start, end, addrs}] range map; applied, not served
+        # [{shard_id, start, end, addrs}] range map
         self.spaces: dict[str, list[dict]] = {}
+        self._sn_heartbeat: dict[str, float] = {}  # volatile, leader-local
         self._placement_warned: set[str] = set()  # once-per-kind stderr note
         self._next_disk = 1
         self._next_vid = 1
@@ -464,7 +460,28 @@ class ClusterMgr(ReplicatedFsm):
             nxt = page[-1] if len(keys) > count else ""
             return [(k, self.kvs[k]) for k in page], nxt
 
-    # ---------------- shardnode catalog (applied, not served) ----------------
+    # ---------------- shardnode catalog ----------------
+    # clustermgr/catalog role: the authoritative space -> range-shard
+    # map shardnode clients route by, raft-replicated like every other
+    # piece of clustermgr state.
+    def create_space(self, name: str, shard_count: int,
+                     replica_addrs: list[str]) -> list[dict]:
+        """Carve the keyspace into `shard_count` contiguous ranges over
+        one replica set. Range bounds use the reference's hex-prefix
+        style split of a flat namespace."""
+        if not 1 <= shard_count <= 4096:
+            # beyond 4096 initial ranges the 16-bit bounds would
+            # collide into degenerate [x, x) shards; grow by splitting
+            raise ValueError("shard_count must be in 1..4096")
+        bounds = [""] + [
+            format(i * 65536 // shard_count, "04x")
+            for i in range(1, shard_count)
+        ] + [""]
+        with self._propose_lock:
+            return self._commit({
+                "op": "create_space", "name": name,
+                "bounds": bounds, "addrs": replica_addrs})
+
     def _apply_create_space(self, name: str, bounds: list[str],
                             addrs: list[str]) -> list[dict]:
         if name in self.spaces:
@@ -478,14 +495,51 @@ class ClusterMgr(ReplicatedFsm):
         self.spaces[name] = shards
         return [dict(s) for s in shards]
 
+    def alloc_shard_id(self) -> int:
+        with self._propose_lock:
+            return self._commit({"op": "alloc_shard"})
+
     def _apply_alloc_shard(self) -> int:
         sid = self._next_shard
         self._next_shard += 1
         return sid
 
+    def register_split(self, space: str, parent_id: int, child_id: int,
+                       split_key: str) -> None:
+        with self._propose_lock:
+            self._commit({"op": "register_split", "space": space,
+                          "parent_id": parent_id, "child_id": child_id,
+                          "split_key": split_key})
+
     def _apply_register_split(self, space: str, parent_id: int,
                               child_id: int, split_key: str) -> None:
+        from .shardnode import split_ranges
+
         split_ranges(self.spaces[space], parent_id, child_id, split_key)
+
+    # shardnode liveness (volatile, leader-local — the same contract as
+    # disk heartbeats: a fresh leader starts blind and the scheduler's
+    # grace period covers it)
+    def shardnode_heartbeat(self, addr: str) -> None:
+        with self._lock:
+            self._sn_heartbeat[addr] = time.time()
+
+    def shardnode_last_seen(self, addr: str) -> float | None:
+        with self._lock:
+            return self._sn_heartbeat.get(addr)
+
+    def suspect_dead_shardnodes(self) -> list[str]:
+        """Shardnode addrs referenced by any space that have missed the
+        heartbeat window (never-seen addrs are NOT suspected — a blind
+        fresh leader must not declare the world dead)."""
+        now = time.time()
+        with self._lock:
+            hb = self._sn_heartbeat
+            referenced = {a for shards in self.spaces.values()
+                          for s in shards for a in s["addrs"]}
+            return sorted(
+                a for a in referenced
+                if a in hb and now - hb[a] > self.HEARTBEAT_TIMEOUT)
 
     def update_shard_addrs(self, space: str, shard_id: int,
                            addrs: list[str]) -> None:
@@ -500,6 +554,27 @@ class ClusterMgr(ReplicatedFsm):
                 s["addrs"] = list(addrs)
                 return
         raise KeyError(f"shard {shard_id} not in space {space!r}")
+
+    def route_key(self, space: str, key: str) -> dict:
+        from .shardnode import route_ranges
+
+        with self._lock:
+            try:
+                return route_ranges(self.spaces[space], key)
+            except KeyError:
+                raise KeyError(
+                    f"no shard owns {key!r} in space {space!r}") from None
+
+    def get_space(self, name: str) -> list[dict]:
+        with self._lock:
+            return [dict(s) for s in self.spaces[name]]
+
+    def snapshot_spaces(self) -> dict[str, list[dict]]:
+        """Copy of the whole catalog under the lock — sweeps must not
+        iterate live dicts the raft apply thread mutates."""
+        with self._lock:
+            return {name: [dict(s) for s in shards]
+                    for name, shards in self.spaces.items()}
 
     def topology_view(self) -> dict:
         """AZ->rack->host->disk tree + misplacement/skew summary for
@@ -632,26 +707,48 @@ class ClusterMgr(ReplicatedFsm):
     def rpc_stat(self, args, body):
         return self.stat()
 
+    def rpc_create_space(self, args, body):
+        self._leader_gate()
+        try:
+            shards = self.create_space(args["name"], args["shard_count"],
+                                       args["addrs"])
+        except ValueError as e:
+            raise rpc.RpcError(409, str(e)) from None
+        return {"shards": shards}
+
+    def rpc_get_space(self, args, body):
+        self._leader_gate()
+        try:
+            return {"shards": self.get_space(args["name"])}
+        except KeyError:
+            raise rpc.RpcError(404, f"no space {args['name']!r}") from None
+
+    def rpc_route_key(self, args, body):
+        self._leader_gate()
+        try:
+            return {"shard": self.route_key(args["space"], args["key"])}
+        except KeyError as e:
+            raise rpc.RpcError(404, str(e)) from None
+
+    def rpc_alloc_shard_id(self, args, body):
+        self._leader_gate()
+        return {"shard_id": self.alloc_shard_id()}
+
+    def rpc_register_split(self, args, body):
+        self._leader_gate()
+        self.register_split(args["space"], args["parent_id"],
+                            args["child_id"], args["split_key"])
+        return {}
+
+    def rpc_shardnode_heartbeat(self, args, body):
+        self.shardnode_heartbeat(args["addr"])
+        return {}
+
+    def rpc_update_shard_addrs(self, args, body):
+        self._leader_gate()
+        self.update_shard_addrs(args["space"], args["shard_id"],
+                                args["addrs"])
+        return {}
+
     def rpc_raft_status(self, args, body):
         return self.raft.status() if self.raft else {"role": "standalone"}
-
-
-def split_ranges(shards: list[dict], parent_id: int, child_id: int,
-                 split_key: str) -> None:
-    """In-place range handoff after a shard split: the parent keeps
-    [start, split_key), the child serves [split_key, old_end).
-    Idempotent under retries; rejects a split key outside the parent's
-    CURRENT range (it would create overlapping ranges). The reference
-    keeps this in ``blob/shardnode.py``."""
-    if any(s["shard_id"] == child_id for s in shards):
-        return
-    parent = next(s for s in shards if s["shard_id"] == parent_id)
-    if not (parent["start"] < split_key
-            and (not parent["end"] or split_key < parent["end"])):
-        raise ValueError(
-            f"split key {split_key!r} outside parent range "
-            f"[{parent['start']!r}, {parent['end']!r})")
-    shards.append({"shard_id": child_id, "start": split_key,
-                   "end": parent["end"], "addrs": list(parent["addrs"])})
-    parent["end"] = split_key
-    shards.sort(key=lambda s: s["start"])

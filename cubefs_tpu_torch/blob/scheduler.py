@@ -11,11 +11,12 @@ The port's copy of ``cubefs_tpu/blob/scheduler.py``: broken disks to
 repair tasks, the lease protocol, the repair and delete queues,
 ``TaskSwitch``, migrate, balance and rebalance, the inspector, compaction,
 task persistence and the checkpoint into the clustermgr's kv. The
-inspector's parity recompute runs on ``codecio``'s engine for the
-scheduler's ``device`` and engine name. Shard tasks
-(``shard_repair``/``shard_migrate``) are leased and completed into the
-clustermgr's catalog as the reference's are; queuing them waits for the
-port's shardnode, and the continuous scrub for a later slice too.
+inspector's parity recompute, which the continuous scrubber drives
+over every volume (``make_scrubber``, ``utils/scrub.py``), runs on
+``codecio``'s engine for the scheduler's ``device`` and engine name.
+Shard tasks (``shard_repair``/``shard_migrate``) are queued for dead
+or migrated shardnodes, leased and completed into the clustermgr's
+catalog as the reference's are.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ import numpy as np
 from ..codec import codemode as cmode
 from ..ops import rs_kernel
 from ..utils import lockwitness, metrics, qos, rpc
-from ..utils.retry import RetryPolicy
+from ..utils import scrub as scrublib
+from ..utils.retry import MONOTONIC, RetryPolicy
 
 # shard deletes: 2 quick retries on node-level blips, tightly bounded —
 # the kafka-style delete queue re-drives real failures later anyway
@@ -391,6 +393,12 @@ class Scheduler:
             self._checkpoint()
             return task["task_id"]
 
+    # ---------------- shard-domain tasks ----------------
+    # shard_disk_repairer.go / shard_migrate.go parity: when a shardnode
+    # dies (or an operator migrates a replica), queue a task that swaps
+    # the replica out of every affected shard's raft group. Raft itself
+    # moves the data (InstallSnapshot + appends); the task is the
+    # control-plane choreography, leased/parked like every other task.
     def _leader_grace_ok(self) -> bool:
         """Shared failure-detector gate: non-leaders reset the grace
         clock; a (re-)elected leader waits out a full heartbeat window
@@ -405,6 +413,114 @@ class Scheduler:
             if now - self._leader_since < 2 * self.cm.HEARTBEAT_TIMEOUT:
                 return False
         return True
+
+    def collect_dead_shardnodes(self) -> list[str]:
+        if not self.switch.enabled("shard_repair"):
+            return []
+        if not self._leader_grace_ok():
+            return []
+        dead = self.cm.suspect_dead_shardnodes()
+        for addr in dead:
+            self.repair_shardnode(addr)
+        return dead
+
+    def repair_shardnode(self, dead_addr: str) -> int:
+        """Queue one shard_repair task per shard replicated on
+        `dead_addr`; idempotent. Returns tasks queued."""
+        n = 0
+        with self._lock:
+            for space, shards in self.cm.snapshot_spaces().items():
+                for s in shards:
+                    if dead_addr in s["addrs"]:
+                        if self._queue_shard_task(
+                                "shard_repair", space, s, dead_addr):
+                            n += 1
+        return n
+
+    def shard_migrate(self, space: str, shard_id: int, src_addr: str,
+                      dest_addr: str | None = None) -> str | None:
+        """Manual replica move (shard_migrate.go / manual_migrater
+        analog); healthy source stays up until the new member is in."""
+        with self._lock:
+            s = next(x for x in self.cm.get_space(space)
+                     if x["shard_id"] == shard_id)
+            if src_addr not in s["addrs"]:
+                raise ValueError(f"{src_addr} not a replica of shard "
+                                 f"{shard_id}")
+            if dest_addr is not None:
+                if dest_addr in s["addrs"]:
+                    raise ValueError(f"{dest_addr} is already a replica "
+                                     f"of shard {shard_id}")
+                if dest_addr not in self.cm.get_service("shardnode"):
+                    raise ValueError(f"{dest_addr} is not a registered "
+                                     f"shardnode")
+            return self._queue_shard_task("shard_migrate", space, s,
+                                          src_addr, dest_addr)
+
+    def _healthy_shardnodes(self, exclude: set[str]) -> list[str]:
+        now = time.time()
+        out = []
+        for addr in self.cm.get_service("shardnode"):
+            if addr in exclude:
+                continue
+            seen = self.cm.shardnode_last_seen(addr)
+            if seen is not None and now - seen <= self.cm.HEARTBEAT_TIMEOUT:
+                out.append(addr)
+        return out
+
+    def _queue_shard_task(self, kind: str, space: str, shard: dict,
+                          src_addr: str,
+                          dest_addr: str | None = None) -> str | None:
+        with self._lock:
+            for t in self.tasks.values():
+                if (t.get("space") == space
+                        and t.get("shard_id") == shard["shard_id"]
+                        and t["state"] in ("pending", "leased")):
+                    return t["task_id"]  # idempotent re-queue
+            if dest_addr is None:
+                candidates = self._healthy_shardnodes(set(shard["addrs"]))
+                if not candidates:
+                    return None  # nowhere to go yet; next sweep retries
+                # least-load spread (pick_destination analog): count
+                # catalog replicas + already-queued repairs per addr so
+                # a 50-shard node's death doesn't dogpile one spare
+                load: dict[str, int] = {c: 0 for c in candidates}
+                for shards in self.cm.snapshot_spaces().values():
+                    for x in shards:
+                        for a in x["addrs"]:
+                            if a in load:
+                                load[a] += 1
+                for t in self.tasks.values():
+                    if (t["type"] in ("shard_repair", "shard_migrate")
+                            and t["state"] in ("pending", "leased")
+                            and t["dest_addr"] in load):
+                        load[t["dest_addr"]] += 1
+                dest_addr = min(candidates, key=lambda c: load[c])
+            new_addrs = [dest_addr if a == src_addr else a
+                         for a in shard["addrs"]]
+            task = {
+                "task_id": uuid.uuid4().hex[:16],
+                "type": kind,
+                "space": space,
+                "shard_id": shard["shard_id"],
+                "start": shard["start"],
+                "end": shard["end"],
+                "src_addr": src_addr,
+                "dest_addr": dest_addr,
+                "old_addrs": list(shard["addrs"]),
+                "new_addrs": new_addrs,
+                "state": "pending",
+                "lease_until": 0.0,
+                "worker": None,
+                "attempts": 0,
+                "reason": f"{kind} away from {src_addr}",
+            }
+            self.tasks[task["task_id"]] = task
+            self._record(task["task_id"], "queued", space=space,
+                         shard=shard["shard_id"], src=src_addr,
+                         dest=dest_addr)
+            self._checkpoint()
+            return task["task_id"]
 
     def drop_disk(self, disk_id: int) -> int:
         """Planned decommission: same migrate machinery, healthy source."""
@@ -647,6 +763,53 @@ class Scheduler:
                     # any single unit could cement wrong data
         return {"checked": checked, "bad": bad, "missing": missing_units}
 
+    # ---------------- continuous scrub (full-cursor) ----------------
+    def make_scrubber(self, clock=None, rate: float = 0.0):
+        """Build (or rebuild) the blob-plane continuous scrubber: the
+        full-cursor extension of inspect_volumes — every volume, up to
+        4096 bids each, verified through the same batched parity path,
+        admitted at SCRUB priority (brownout sheds it), cursor persisted
+        like task checkpoints (data_dir file or cm KV)."""
+        def list_units() -> list:
+            return sorted(self.cm.volumes)
+
+        def scrub_unit(vid) -> str:
+            try:
+                with qos.admit("blob.scrub", priority=qos.SCRUB,
+                                  svc="scheduler"):
+                    rep = self._inspect_volume(int(vid), max_bids=4096)
+            except qos.QosRejected:
+                return "skipped"  # brownout: give way to foreground
+            return "corrupt" if (rep["bad"] or rep["missing"]) else "clean"
+
+        def cursor_load():
+            if self.data_dir:
+                path = os.path.join(self.data_dir, "scrub_cursor.json")
+                if os.path.exists(path):
+                    return json.load(open(path)).get("cursor")
+                return None
+            if self._cm_kv:
+                raw = self.cm.kv_get("sched/scrub_cursor")
+                return json.loads(raw).get("cursor") if raw else None
+            return None
+
+        def cursor_save(cursor) -> None:
+            if self.data_dir:
+                tmp = os.path.join(self.data_dir, "scrub_cursor.json.tmp")
+                with open(tmp, "w") as f:
+                    json.dump({"cursor": cursor}, f)
+                os.replace(tmp, os.path.join(self.data_dir,
+                                             "scrub_cursor.json"))
+            elif self._cm_kv:
+                self.cm.kv_set("sched/scrub_cursor",
+                               json.dumps({"cursor": cursor}))
+
+        self.scrubber = scrublib.Scrubber(
+            "blob", list_units, scrub_unit,
+            clock=clock or MONOTONIC, rate=rate,
+            cursor_load=cursor_load, cursor_save=cursor_save)
+        return self.scrubber
+
     def collect_quarantined_disks(self) -> list[int]:
         """Quarantine → drain: every disk a blobnode heartbeat flipped
         to QUARANTINED gets ONE plan_disk_drain kick (existing data
@@ -671,6 +834,19 @@ class Scheduler:
             except Exception:
                 pass  # planning is advisory; next quarantine re-kicks
         return kicked
+
+    def rpc_scrub_status(self, args, body):
+        s = getattr(self, "scrubber", None)
+        return {"scrub": s.status() if s is not None else None}
+
+    def rpc_scrub_run(self, args, body):
+        s = getattr(self, "scrubber", None)
+        if s is None:
+            s = self.make_scrubber()
+        if args.get("full"):
+            return {"result": s.run_full_pass()}
+        return {"result": s.run_once(
+            max_units=int(args.get("max_units", 8)))}
 
     @staticmethod
     def _isolate_corrupt_unit(codec, t, stripe) -> int | None:
@@ -817,6 +993,7 @@ class Scheduler:
                         self._leader_since = None
                         continue
                     self.collect_broken_disks()
+                    self.collect_dead_shardnodes()
                     self.collect_quarantined_disks()
                     self.consume_repair_msgs()
                     self.consume_delete_msgs()
@@ -825,6 +1002,14 @@ class Scheduler:
                         self.rebalance_sweep()
                     if self._ticks % 60 == 0:  # periodic space reclaim
                         self.compact_chunks()
+                    if self._ticks % 10 == 0 and self.switch.enabled("scrub"):
+                        # continuous integrity scrub: a small slice per
+                        # tick; the Scrubber itself handles QoS shedding,
+                        # the CUBEFS_SCRUB door and cursor resume
+                        s = getattr(self, "scrubber", None)
+                        if s is None:
+                            s = self.make_scrubber()
+                        s.run_once(max_units=2)
                 except Exception:
                     pass  # leader loop must survive transient errors
 
@@ -852,7 +1037,7 @@ class Scheduler:
         return {}
 
     TASK_KINDS = ("disk_repair", "shard_repair", "blob_delete", "balance",
-                  "rebalance", "volume_inspect", "compact")
+                  "rebalance", "volume_inspect", "compact", "scrub")
 
     def rpc_task_switch(self, args, body):
         """Runtime kill-switches per background task kind (taskswitch

@@ -369,6 +369,19 @@ wal_torn_tail = DEFAULT.counter(
     "cubefs_wal_torn_tail_total",
     "WAL replays that truncated a torn trailing record (the expected "
     "crash artifact; corrupt-MIDDLE records refuse replay instead)")
+scrub_items = DEFAULT.counter(
+    "cubefs_scrub_items_total",
+    "scrubbed units by plane and outcome: `clean`, `corrupt` (detected "
+    "and queued/healed), `skipped` (brownout or rate limit deferred)",
+    ("plane", "outcome"))
+scrub_last_full_pass = DEFAULT.gauge(
+    "cubefs_scrub_last_full_pass_seconds",
+    "wall seconds the most recent COMPLETED full scrub pass took, per "
+    "plane (0 until a first pass completes)", ("plane",))
+scrub_cursor = DEFAULT.gauge(
+    "cubefs_scrub_cursor_position",
+    "resumable sweep cursor position within the current pass",
+    ("plane",))
 disk_quarantined = DEFAULT.gauge(
     "cubefs_disk_quarantine_active",
     "disks currently quarantined (no new allocations; probe-based "

@@ -10,15 +10,17 @@ lowest-value work first instead of collapsing every tenant's p99.
 
 Decision order in `admit()` (cheapest check first):
 
-1. Brownout priority shed: when the path's burn rate crosses
+1. `CUBEFS_QOS=0` door — returns a shared no-op admission: zero
+   state touched, bit-identical to the pre-QoS path.
+2. Brownout priority shed: when the path's burn rate crosses
    `burn_warn`, SCRUB-class work is shed outright; past
    `burn_critical`, REPAIR-class work too. Foreground is never shed
    by burn rate alone.
-2. Queue-depth bound: per-path inflight must stay under the
+3. Queue-depth bound: per-path inflight must stay under the
    priority's share of `max_inflight` (foreground 100%, repair 75%,
    scrub 50%) — a saturated path rejects instead of queueing without
    bound.
-3. Tenant token bucket: configured quotas shape (wait up to
+4. Tenant token bucket: configured quotas shape (wait up to
    `shaping_timeout`) under normal load and shed with zero grace
    under brownout. Tenants with no configured quota are unlimited
    while the path is healthy (work conservation); a gate constructed
@@ -28,9 +30,10 @@ Decision order in `admit()` (cheapest check first):
 
 Shed requests raise `QosRejected` (RpcError code 429 with a
 retry-after hint); the blob SDK backs off through `RetryPolicy`, the
-S3 door maps it to 429 SlowDown. The degradation hook
-`repair_step_scale` lets the repair scheduler shed deferrable
-background work while any path is browned out.
+S3 door maps it to 429 SlowDown. Degradation hooks
+(`scrub_suppressed`, `repair_step_scale`) let the scrubber and the
+repair scheduler shed deferrable background work while any path is
+browned out.
 
 Everything rides the injectable Clock protocol (utils/retry.py), so
 the million-client loadgen drills run on FakeClock, deterministically.
@@ -40,6 +43,7 @@ The port's copy of ``cubefs_tpu/utils/qos.py``, with the same behaviour.
 
 from __future__ import annotations
 
+import os
 import threading
 
 from . import metrics, trace as tracelib
@@ -60,6 +64,11 @@ _DEPTH_SHARE = {FOREGROUND: 1.0, REPAIR: 0.75, SCRUB: 0.5}
 _REPAIR_SCALE = {0: 1.0, 1: 0.5, 2: 0.25}
 
 
+def enabled() -> bool:
+    """The CUBEFS_QOS=0 A/B door: the whole layer no-ops when off."""
+    return os.environ.get("CUBEFS_QOS", "1") != "0"
+
+
 class QosRejected(RpcError):
     """Request shed at admission (HTTP/RPC 429). `retry_after` is the
     backoff hint a client should honor before re-trying."""
@@ -73,6 +82,28 @@ class QosRejected(RpcError):
         self.tenant = tenant
         self.reason = reason
         self.retry_after = retry_after
+
+
+class _NoopAdmission:
+    """Door-off / disabled-gate stand-in: full Admission surface,
+    zero work, shared instance."""
+    __slots__ = ()
+    tenant = ""
+    path = ""
+    priority = FOREGROUND
+    throttle_s = 0.0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
+
+    def release(self):
+        pass
+
+
+NOOP_ADMISSION = _NoopAdmission()
 
 
 class Admission:
@@ -234,12 +265,14 @@ class QosGate:
 
     def admit(self, path: str, tenant: str | None = None,
               priority: int | None = None, cost: float = 1.0,
-              svc: str = "") -> "Admission":
+              svc: str = "") -> "Admission | _NoopAdmission":
         """Admit one request to `path` on behalf of `tenant`, or raise
         QosRejected(429). Returns a context manager holding the
         inflight slot; use `with gate.admit(...):` around the handler
         body, or keep the Admission and `release()` it when the
         response is written."""
+        if not enabled():
+            return NOOP_ADMISSION
         if tenant is None:
             tenant = tracelib.current_tenant() or "anonymous"
         quota = self._quotas.get(tenant)
@@ -345,7 +378,20 @@ def admit(path: str, tenant: str | None = None, priority: int | None = None,
                          cost=cost, svc=svc)
 
 
+def scrub_suppressed() -> bool:
+    """Scrub-class background work (cold-tier migration, compaction)
+    stops at the first brownout level — the gate would shed its
+    admissions anyway (SCRUB is dropped at level >= 1), so schedulers
+    check this BEFORE reading payload bytes and skip the whole item
+    instead of burning a read + a 429."""
+    if not enabled():
+        return False
+    return DEFAULT.max_level() >= 1
+
+
 def repair_step_scale() -> float:
     """Brownout multiplier for the repair scheduler's drain step bytes
     (its weights): 1.0 healthy, 0.5 under warn, 0.25 under critical."""
+    if not enabled():
+        return 1.0
     return _REPAIR_SCALE[min(2, DEFAULT.max_level())]

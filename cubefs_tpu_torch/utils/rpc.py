@@ -143,6 +143,9 @@ class RpcServer:
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
+            # a reply is two writes (headers, then body): with Nagle on, the
+            # body waits for the client's delayed ACK of the headers, ~40 ms
+            disable_nagle_algorithm = True
 
             def log_message(self, *a):  # quiet
                 pass

@@ -489,8 +489,10 @@ def test_taskswitch_blocks_collection(cluster):
     assert cluster.sched.collect_broken_disks() == []
     cluster.sched.switch.enable("disk_repair")
     assert cluster.sched.rpc_task_switch({"action": "list"}, b"")["switches"]["disk_repair"]
-    with pytest.raises(rpc.RpcError, match="unknown task kind 'scrub'"):
-        cluster.sched.rpc_task_switch({"action": "disable", "kind": "scrub"}, b"")
+    cluster.sched.rpc_task_switch({"action": "disable", "kind": "scrub"}, b"")
+    assert not cluster.sched.rpc_task_switch({"action": "list"}, b"")["switches"]["scrub"]
+    with pytest.raises(rpc.RpcError, match="unknown task kind 'scrubber'"):
+        cluster.sched.rpc_task_switch({"action": "disable", "kind": "scrubber"}, b"")
 
 
 @pytest.mark.parametrize("engine", ENGINES)

@@ -37,15 +37,6 @@ PORT = types.SimpleNamespace(auditlog=auditlog, trace=tracelib, rpc=rpc, FakeClo
                              MONOTONIC=MONOTONIC, clustermgr=clustermgr, proxy=proxy)
 BLOB = 64 << 10
 
-# Routes the reference's roles serve and the port's do not yet: the
-# clustermgr's shardnode catalog (ROADMAP §1 item 2), also under the
-# scheduler's cm_ prefix, and the scheduler's scrub (§1 item 3).
-CM_PENDING = {"alloc_shard_id", "create_space", "get_space", "register_split", "route_key",
-              "shardnode_heartbeat", "update_shard_addrs"}
-PENDING = {"clustermgr": CM_PENDING,
-           "scheduler": {"scrub_run", "scrub_status"} | {f"cm_{r}" for r in CM_PENDING}}
-
-
 @pytest.fixture(scope="module")
 def ref():
     from cubefs_tpu import cmd as ref_cmd
@@ -344,9 +335,62 @@ def test_role_route_set_equals_the_reference(ref, traces, still_qos, role_cm, tm
 
     got, code = run(cmd, "port", device="cpu")
     want, ref_code = run(ref.cmd, "ref")
-    assert got == want - PENDING.get(role, set())
-    assert PENDING.get(role, set()) <= want and code == ref_code == 404
+    assert got == want and code == ref_code == 404
     assert os.path.exists(tmp_path / "port" / "audit" / f"{role}.audit.log")
+
+
+def _space_and_scrub_calls(addr: str, prefix: str) -> list:
+    """The catalog's routes (under ``prefix``) and, on a scheduler, its
+    scrub routes, with refusals among them: every reply's code and JSON."""
+    def call(method, args, prefix=prefix):
+        code, meta, _ = http_post(addr, prefix + method, args)
+        return method, code, meta
+
+    out = [call("create_space", {"name": "meta", "shard_count": 4,
+                                 "addrs": ["sn0", "sn1", "sn2"]}),
+           call("create_space", {"name": "meta", "shard_count": 2, "addrs": ["sn0"]}),
+           call("create_space", {"name": "big", "shard_count": 5000, "addrs": ["sn0"]}),
+           call("route_key", {"space": "meta", "key": "a-key"}),
+           call("alloc_shard_id", {}),
+           call("register_split", {"space": "meta", "parent_id": 3, "child_id": 5,
+                                   "split_key": "a0"}),
+           call("route_key", {"space": "meta", "key": "a1"}),
+           call("shardnode_heartbeat", {"addr": "sn0"}),
+           call("update_shard_addrs", {"space": "meta", "shard_id": 5,
+                                       "addrs": ["sn0", "sn3", "sn2"]}),
+           call("get_space", {"name": "meta"}),
+           call("get_space", {"name": "nope"}),
+           call("route_key", {"space": "nope", "key": "x"})]
+    if prefix:  # a scheduler: its scrubber over a catalog with no volumes
+        out += [call(m, a, prefix="") for m, a in (
+            ("scrub_status", {}), ("scrub_run", {"max_units": 2}), ("scrub_run", {"full": True}),
+            ("scrub_status", {}))]
+    return out
+
+
+@pytest.mark.parametrize("role", ["clustermgr", "scheduler"])
+def test_space_and_scrub_routes_answer_as_the_reference(ref, traces, still_qos, tmp_path,
+                                                        role):
+    def run(pkg_cmd, tag, **dev):
+        d = tmp_path / tag
+        srv, svc = pkg_cmd.run_role({"role": role, "listen_port": 0, "data_dir": str(d / "cm"),
+                                     "task_dir": str(d / "tasks"), **dev})
+        try:
+            return _space_and_scrub_calls(srv.addr, "cm_" if role == "scheduler" else "")
+        finally:
+            if pkg_cmd is cmd:
+                assert cmd.shutdown(srv, svc) == 0
+            else:
+                _ref_close(srv, svc)
+
+    got, want = run(cmd, "port", device="cpu"), run(ref.cmd, "ref")
+    assert got == want
+    codes = [c for _, c, _ in got]
+    assert codes[:3] == [200, 409, 409] and codes[10:12] == [404, 404]
+    assert got[6][2]["shard"]["shard_id"] == 5 and len(got[9][2]["shards"]) == 5
+    if role == "scheduler":
+        assert got[12][2] == {"scrub": None}
+        assert got[14][2]["result"]["plane"] == "blob" and got[15][2]["scrub"]["cursor"] is None
 
 
 def _free_addr() -> str:
@@ -402,7 +446,7 @@ def test_raft_config_serves_the_reference_routes(ref, traces, still_qos, role_cm
     got, got_raft = run(cmd, "port", device="cpu")
     want, want_raft = run(ref.cmd, "ref")
     role = case.split("_")[0]
-    assert got == want - PENDING.get(role, set())
+    assert got == want
     if case == "clustermgr_peers":  # a lone member of three: it cannot win an election
         assert {got_raft["raft"], want_raft["raft"]} <= {"follower", "candidate"}
     else:
