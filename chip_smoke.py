@@ -67,8 +67,19 @@ brownout, ``CUBEFS_QOS``). Then the metadata shards (phase
 ``shardnode``, host only): 3 shardnodes on raft over the native KV store
 take 16,384 items from 8 clients, split a shard, lose a node whose
 replicas the scheduler's shard tasks move to a spare, and restart from
-their directories. Each phase prints one JSON line; any failure, in any
-rank, raises.
+their directories. Then the file-system plane (phase ``fs``): the
+launcher starts a master, 3 metanodes, 4 datanodes (replicas 3) and a
+volume of 3 meta and 4 data partitions beside a clustermgr and 6
+blobnodes x 3 disks, each a process; the client in this process writes
+16 files of 64 MiB from 4 threads over the packet plane, reads them
+through the native read plane, creates, stats, renames and unlinks small
+files from 8 threads (group commit read from the metanodes'
+``/metrics``), tiers 4 aged files by a lifecycle scan into the blob plane
+(kernel A encodes each tier PUT here, and rebuilds each cold read with a
+blobnode process stopped), holds their parity against the plain version,
+re-heats one, reaps, and reads every file again with a datanode process
+stopped. Each phase prints one JSON line; any failure, in any rank,
+raises.
 
 The last lines are the kernels' record, the card's name and power limit
 as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -137,6 +148,13 @@ RAFT_PUTS = 4  # phase raft: 64 MiB objects PUT on each side of a clustermgr lea
 INTEGRITY_OBJECTS = 16  # phase integrity: 64 MiB objects, 1 GiB of user data
 INTEGRITY_GETS = 8  # foreground GETs alone and under a full scrub pass
 SN_ITEMS, SN_VALUE, SN_THREADS = 16384, 1024, 8  # phase shardnode: 16 MiB of 1 KiB items
+# phase fs: 16 files of 64 MiB from 4 writers (1 GiB of user data, 3 GiB on
+# the datanodes at 3 replicas), 8 threads x 256 files of 4 KiB (cut from
+# 1,024 a thread: 8,192 creates, renames and stats took 243 s on the card's
+# host), 4 files tiered
+FS_FILES, FS_FILE, FS_WRITERS = 16, 64 * MIB, 4
+FS_META_THREADS, FS_META_FILES, FS_META_SIZE = 8, 256, 4096
+FS_TIER = 4
 # the C and D instantiations the kernels' record reports: (case, extract, probe, grid)
 RECORDED_BM = (("tuning_rows_2x12_B4", "bcast", None, "flat"),
                ("tuning_rows_2x12_B4", "bcast", "nodot", "stripe"))
@@ -1842,6 +1860,328 @@ def shardnode_phase(dev, card: str, *, items: int = SN_ITEMS, value: int = SN_VA
             "checks": checks}
 
 
+def fs_phase(dev, card: str, *, files: int = FS_FILES, file_size: int = FS_FILE,
+             writers: int = FS_WRITERS, meta_threads: int = FS_META_THREADS,
+             meta_files: int = FS_META_FILES, meta_size: int = FS_META_SIZE,
+             tier: int = FS_TIER, blob_size: int = BLOB, device: str | None = None) -> dict:
+    """Phase ``fs``: the file-system plane as its users start it. The
+    launcher (``deploy.Cluster``) starts a master, 3 metanodes and 4
+    datanodes (replicas 3), the volume ``vol1`` (3 meta and 4 data
+    partitions) and, beside them, a clustermgr and 6 blobnodes x 3 disks,
+    each a ``python -m cubefs_tpu_torch.cmd`` process. The client, a
+    ``FileSystem`` with ``CUBEFS_TIERING=1``, runs in this process; its
+    ``blob_client`` is a ``BlobClient`` whose ``AccessHandler`` runs
+    engine ``cuda`` on ``dev`` (8 MiB blobs, EC12P4 by policy), so kernel
+    A launches here.
+
+    Data path: ``files`` files of ``file_size`` bytes written from
+    ``writers`` threads over the packet plane (chunk trains past
+    ``CUBEFS_PKT_CHUNK``) and read back through the datanodes' native
+    read plane. Metadata path: ``meta_threads`` threads each create and
+    write ``meta_files`` files of ``meta_size`` bytes, then a ``readdir``,
+    a ``stat`` of each, a rename of each and an unlink of half, timed per
+    op; group commit is read from the metanodes' ``/metrics``. Cold tier:
+    the first ``tier`` files, aged, are tiered by one ``LcNode`` scan;
+    each must be ``cold.location``-only, each tiered blob's parity
+    (fetched from the blobnodes) equal the plain version, each cold read
+    equal the hot bytes, healthy and with one blobnode process stopped
+    (A reconstructs); a re-heated file untiers, and the reap empties the
+    blob freelist. Last, one datanode process is stopped and every file
+    is read again (replica failover). Every role must exit 0 on SIGTERM.
+    ``device`` is the roles' (None: the card). Returns the record with
+    ``checks`` and ``launches`` (this process's)."""
+    from cubefs_tpu_torch.blob.access import AccessConfig
+    from cubefs_tpu_torch.blob.sdk import BlobClient
+    from cubefs_tpu_torch.codec import codemode as cm
+    from cubefs_tpu_torch.deploy.cluster import Cluster
+    from cubefs_tpu_torch.fs.client import FileSystem
+    from cubefs_tpu_torch.fs.lcnode import LcNode, LifecycleRule
+    from cubefs_tpu_torch.ops import _build
+    from cubefs_tpu_torch.runtime import fsnative
+    from cubefs_tpu_torch.utils import metrics, packet, qos, rpc
+
+    class Quiet:  # the gate's burn-rate source, pinned: the phase's own write
+        def snapshot(self):  # burst would brown out SCRUB and defer every migrate
+            return {}
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 17)
+    print(json.dumps({"phase": "fs", "card": card}), flush=True)
+    t = time.perf_counter()
+    fsnative.load()  # the extent store and both read planes, built once for every role
+    native_build_s = time.perf_counter() - t
+    workdir = tempfile.mkdtemp(prefix="cubefs-smoke-fs-")
+    gate = (qos.DEFAULT._tracker, qos.DEFAULT._levels, qos.DEFAULT._last_refresh)
+    qos.DEFAULT._tracker, qos.DEFAULT._levels = Quiet(), {}
+    qos.DEFAULT._last_refresh = float("-inf")
+    saved_env = {v: os.environ.pop(v, None) for v in ("CUBEFS_TIERING", "CUBEFS_UNTIER_HOT")}
+    cases: dict[str, dict] = {}
+    topo = {"metanodes": 3, "datanodes": 4, "replicas": 3,
+            "volume": {"name": "vol1", "mp_count": 3, "dp_count": 4},
+            "blobnodes": BLOB_NODES, "disks_per_blobnode": BLOB_DISKS, "access": False,
+            "device": device}
+    c = Cluster(topo, workdir, timeout=300.0)
+    fs = None
+    codes: dict = {}
+
+    def a_launches() -> int:
+        return _build.LAUNCHES["gf_apply"]
+
+    def wait_for(cond, what: str, timeout: float = 120.0):
+        deadline = time.perf_counter() + timeout
+        while True:
+            try:
+                got = cond()
+                if got:
+                    return got
+            except Exception as e:  # an election in progress
+                err = e
+            else:
+                err = None
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"phase fs: timed out waiting for {what}: {err}")
+            time.sleep(0.1)
+
+    def run_threads(n: int, fn) -> float:
+        t = time.perf_counter()
+        with ThreadPoolExecutor(n) as ex:
+            list(ex.map(fn, range(n)))
+        return time.perf_counter() - t
+
+    def reads(label: str, paths: list, want: list, threads: int) -> None:
+        got = [None] * len(paths)
+
+        def one(i):
+            for j in range(i, len(paths), threads):
+                got[j] = fs.read_file(paths[j])
+        secs = run_threads(threads, one)
+        nbytes = sum(len(w) for w in want)
+        cases[label] = {"files": len(paths), "bytes": nbytes, "seconds": secs,
+                        "gib_s": nbytes / secs / 2**30,
+                        "equal": all(g == w for g, w in zip(got, want))}
+
+    def pkt_client() -> dict:
+        return {d: metrics.pkt_frames.value(dir=d, side="client") for d in ("tx", "rx")}
+
+    def scrape_sum(addrs: list, prefix: str) -> float:
+        return sum(v for a in addrs for k, v in scrape(a).items() if k.startswith(prefix))
+
+    def native_ops(addrs: list) -> int:
+        return sum(rpc_post(a, "stat", {})[1]["native_read_ops"] for a in addrs)
+
+    def op_stats(ms: list, secs: float) -> dict:
+        ms = sorted(ms)
+        return {"ops": len(ms), "seconds": secs, "ops_s": len(ms) / secs,
+                "p50_ms": ms[len(ms) // 2], "p99_ms": ms[min(len(ms) - 1, int(len(ms) * 0.99))]}
+
+    try:
+        t = time.perf_counter()
+        state = c.up()
+        startup_s = time.perf_counter() - t
+        roles = state["roles"]
+        master, cmgr = roles["master"][0], roles["clustermgr"][0]
+        metas, datas = roles["metanode"], roles["datanode"]
+        view = rpc.call(master, "client_view", {"name": state["volume"]})[0]["volume"]
+        pool = rpc.NodePool()
+        acfg = AccessConfig(blob_size=blob_size, engine="cuda", device=dev)
+        blob = BlobClient(cmgr, pool, acfg)
+        os.environ["CUBEFS_TIERING"] = "1"
+        try:
+            fs = FileSystem(view, pool, blob_client=blob)
+        finally:
+            os.environ.pop("CUBEFS_TIERING", None)
+        # per-partition raft groups elect their leaders first
+        t = time.perf_counter()
+        for d in ("/data", "/cold", "/meta"):
+            wait_for(lambda d=d: fs.mkdir(d), f"mkdir {d}")
+        election_s = time.perf_counter() - t
+
+        # -- data path: 4 writers over the packet plane -------------------------
+        _build.reset_launches()
+        paths = [f"/cold/f{i}" if i < tier else f"/data/f{i}" for i in range(files)]
+        payloads = [rng.integers(0, 256, file_size, dtype=np.uint8).tobytes()
+                    for _ in range(files)]
+        f0, dn0 = pkt_client(), native_ops(datas)
+
+        def write(i):
+            for j in range(i, files, writers):
+                fs.write_file(paths[j], payloads[j])
+        secs = run_threads(writers, write)
+        f1 = pkt_client()
+        cases["write"] = {"files": files, "bytes": files * file_size, "seconds": secs,
+                          "gib_s": files * file_size / secs / 2**30,
+                          "client_frames": {k: f1[k] - f0[k] for k in f1}}
+        reads("read", paths, payloads, writers)
+        cases["read"]["native_read_ops"] = native_ops(datas) - dn0
+
+        # -- metadata path: 8 threads of small files ----------------------------
+        lat: dict[str, list] = {k: [] for k in ("create_write", "stat", "rename", "unlink")}
+        lock = threading.Lock()
+        small = [rng.integers(0, 256, meta_size, dtype=np.uint8).tobytes()
+                 for _ in range(meta_threads)]
+        batched0 = scrape_sum(metas, "cubefs_meta_batched_ops_total")
+        entries0 = scrape_sum(metas, "cubefs_meta_batch_entries_total")
+
+        def timed_ops(kind: str, n: int, fn) -> None:
+            def work(i):
+                mine = []
+                for j in range(i, n, meta_threads):
+                    t = time.perf_counter()
+                    fn(j)
+                    mine.append((time.perf_counter() - t) * 1e3)
+                with lock:
+                    lat[kind].extend(mine)
+            cases[f"meta_{kind}"] = op_stats(lat[kind], run_threads(meta_threads, work))
+
+        n_meta = meta_threads * meta_files
+        timed_ops("create_write", n_meta,
+                  lambda j: fs.write_file(f"/meta/s{j}", small[j % meta_threads]))
+        t = time.perf_counter()
+        listing = fs.readdir("/meta")
+        cases["meta_readdir"] = {"entries": len(listing),
+                                 "ms": (time.perf_counter() - t) * 1e3}
+        sizes = [0] * n_meta
+
+        def stat(j):
+            sizes[j] = fs.stat(f"/meta/s{j}")["size"]
+        timed_ops("stat", n_meta, stat)
+        timed_ops("rename", n_meta, lambda j: fs.rename(f"/meta/s{j}", f"/meta/r{j}"))
+        timed_ops("unlink", n_meta // 2, lambda j: fs.unlink(f"/meta/r{2 * j}"))
+        left = fs.readdir("/meta")
+        meta_read = fs.read_file(f"/meta/r{n_meta - 1}")
+        batched = scrape_sum(metas, "cubefs_meta_batched_ops_total") - batched0
+        batch_entries = scrape_sum(metas, "cubefs_meta_batch_entries_total") - entries0
+
+        # -- cold tier: one LcNode scan tiers the aged files --------------------
+        now = time.time()
+        for p in paths[:tier]:
+            fs.meta.set_attr(fs.resolve(p), mtime=now - 7200)
+        lc = LcNode(fs, engine=fs.tiering)
+        lc.set_rules([LifecycleRule("tier", prefix="/cold/", transition_after_s=3600)])
+        a0 = a_launches()
+        t = time.perf_counter()
+        rep = lc.scan_once()
+        migrate_s = time.perf_counter() - t
+        inodes = [fs.meta.inode_get(fs.resolve(p)) for p in paths[:tier]]
+        locs = [json.loads(i["xattr"]["cold.location"]) if i["xattr"].get("cold.location")
+                else None for i in inodes]
+        cases["migrate"] = {"files": tier, "bytes": tier * file_size, "seconds": migrate_s,
+                            "transitioned": rep.transitioned, "errors": rep.errors,
+                            "a_launches": a_launches() - a0, "engine": acfg.engine,
+                            "cold_only": all(not i["extents"] and loc is not None
+                                             and "tiering.state" not in i["xattr"]
+                                             for i, loc in zip(inodes, locs))}
+        mode = cm.CodeMode(locs[0]["codemode"])
+        tac = cm.tactic(mode)
+        vols = {}
+        for loc in locs:
+            for sl in loc["slices"]:
+                if sl["vid"] not in vols:
+                    vols[sl["vid"]] = rpc_post(cmgr, "get_volume", {"vid": sl["vid"]})[1]["volume"]
+        parity_equal = [parity_equals_plain(vols[sl["vid"]], bid, tac.n, tac.m)
+                        for loc in locs for sl in loc["slices"]
+                        for bid in range(sl["min_bid"], sl["min_bid"] + sl["count"])]
+
+        def cold_reads(label: str) -> None:
+            a0, ms, got = a_launches(), [], []
+            for p in paths[:tier]:
+                t = time.perf_counter()
+                got.append(fs.read_file(p))
+                ms.append((time.perf_counter() - t) * 1e3)
+            cases[label] = {"files": tier, "ms_runs": ms, "ms": statistics.median(ms),
+                            "a_launches": a_launches() - a0,
+                            "equal": all(g == w for g, w in zip(got, payloads[:tier]))}
+        cold_reads("cold_read")
+
+        # -- one blobnode process stopped: degraded cold reads -------------------
+        held = {bn: {vid: [u["index"] for u in v["units"] if u["node_addr"] == bn]
+                     for vid, v in vols.items()} for bn in roles["blobnode"]}
+        victim = max((bn for bn in roles["blobnode"]
+                      if max(len(ix) for ix in held[bn].values()) <= tac.m),
+                     key=lambda bn: sum(len(ix) for ix in held[bn].values()))
+        bproc = next(p for p in c.procs if p.addr == victim)
+        bproc.p.terminate()
+        blob_victim_exit = bproc.p.wait(60)
+        lost_data_blobs = sum(sl["count"] for loc in locs for sl in loc["slices"]
+                              if any(i < tac.n for i in held[victim][sl["vid"]]))
+        cold_reads("degraded_cold_read")
+        cases["degraded_cold_read"].update({"stopped": bproc.name,
+                                            "blobs_lost_a_data_unit": lost_data_blobs})
+
+        # -- re-heat: one more read crosses the threshold; the scan untiers -----
+        fs.read_file(paths[0])
+        rep2 = lc.scan_once()
+        hot0 = fs.meta.inode_get(fs.resolve(paths[0]))
+        reheat = {"untiered": rep2.untiered, "reaped": rep2.reaped,
+                  "extents_back": bool(hot0["extents"]),
+                  "cold_location_cleared": not hot0["xattr"].get("cold.location"),
+                  "equal": fs.read_file(paths[0]) == payloads[0]}
+        freelist = fs.meta.blob_freelist_all()
+        if freelist:
+            lc.scan_once()  # a reap that met the stopped blobnode retries
+            freelist = fs.meta.blob_freelist_all()
+
+        # -- one datanode process stopped: every file read again ----------------
+        dproc = next(p for p in c.procs if p.role == "datanode")
+        dproc.p.terminate()
+        data_victim_exit = dproc.p.wait(60)
+        reads("failover_read", paths, payloads, writers)
+        cases["failover_read"]["stopped"] = dproc.name
+        launches = {"gf_apply": a_launches()}
+    finally:
+        if fs is not None:
+            for cl in (*fs.meta._packet_clients.values(), *fs.data._packet_clients.values()):
+                cl.close()
+        codes = c.down()
+        shutil.rmtree(workdir, ignore_errors=True)
+        qos.DEFAULT._tracker, qos.DEFAULT._levels, qos.DEFAULT._last_refresh = gate
+        for k, v in saved_env.items():
+            if v is not None:
+                os.environ[k] = v
+
+    k = cases
+    checks = {
+        # a frame per CUBEFS_PKT_CHUNK of payload, at least: chunk trains
+        "write_chunk_trains": k["write"]["client_frames"]["tx"]
+        >= files * file_size // packet.chunk_size(),
+        "read.equal": k["read"]["equal"],
+        "read_native_plane": k["read"]["native_read_ops"] > 0,
+        "meta_readdir_all": k["meta_readdir"]["entries"] == n_meta,
+        "meta_stat_sizes": all(sz == meta_size for sz in sizes),
+        "meta_left_half": sorted(left) == sorted(f"r{2 * j + 1}" for j in range(n_meta // 2)),
+        "meta_read_back": meta_read == small[(n_meta - 1) % meta_threads],
+        "group_commit_engaged": batched > 0,
+        "tier_codemode_ec12p4": mode == cm.CodeMode.EC12P4,
+        "migrated_all": k["migrate"]["transitioned"] == tier and not k["migrate"]["errors"],
+        "cold_location_only": k["migrate"]["cold_only"],
+        "tier_launched_a_per_file": k["migrate"]["a_launches"] >= tier,
+        "parity_equals_plain": bool(parity_equal) and all(parity_equal),
+        "cold_read.equal": k["cold_read"]["equal"],
+        "degraded_cold_read.equal": k["degraded_cold_read"]["equal"],
+        "degraded_launched_a_per_lost_blob": lost_data_blobs > 0
+        and k["degraded_cold_read"]["a_launches"] >= lost_data_blobs,
+        "reheat_untiers_one": reheat["untiered"] == 1 and reheat["extents_back"]
+        and reheat["cold_location_cleared"] and reheat["equal"],
+        "freelist_empty_after_reap": freelist == {},
+        "failover_read.equal": k["failover_read"]["equal"],
+        "every_role_exited_0": blob_victim_exit == 0 and data_victim_exit == 0
+        and all(rc == 0 for rc in codes.values()),
+    }
+    return {"phase": "fs", "card": card, "seconds": time.perf_counter() - t_phase,
+            "native_build_s": native_build_s, "startup_s": startup_s,
+            "election_s": election_s,
+            "cluster": {"roles": {r: len(a) for r, a in roles.items()}, "replicas": 3,
+                        "mp_count": 3, "dp_count": 4, "files": files, "file_size": file_size,
+                        "writers": writers, "meta_threads": meta_threads,
+                        "meta_files": n_meta, "meta_size": meta_size, "tiered": tier,
+                        "blob_size": blob_size, "codemode": mode.name,
+                        "blob_shard": -(-blob_size // tac.n)},
+            "cases": cases, "group_commit": {"batched_ops": batched,
+                                             "batch_entries": batch_entries},
+            "reheat": reheat, "parity_blobs": len(parity_equal),
+            "exit_codes": {**codes}, "launches": launches, "checks": checks}
+
+
 def main() -> int:
     import torch
 
@@ -2861,7 +3201,18 @@ def main() -> int:
     if failed:
         raise AssertionError(f"shardnode checks failed: {failed}")
 
-    # -- 17. the sharded step: 8 ranks over torch.distributed ----------------
+    # -- 17. the file-system plane: master, metanodes, datanodes, the client
+    # The roles are processes; the client runs here, and so does its cold
+    # tier's blob codec: A encodes each tier PUT and rebuilds each degraded
+    # cold read in this process, on engine cuda. Counts from 0: A only.
+    torch.cuda.empty_cache()
+    fsp = fs_phase(dev, card)
+    emit(fsp)
+    failed = [k for k, v in fsp["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"fs checks failed: {failed}")
+
+    # -- 18. the sharded step: 8 ranks over torch.distributed ----------------
     # Built above, in this process: the ranks find the libraries and run
     # no nvcc. Every rank runs A and B on its own block; the collectives
     # go through gloo, which stages CUDA buffers through host memory and
@@ -2884,7 +3235,7 @@ def main() -> int:
     if sh_bad:
         raise AssertionError(f"sharded step checks failed: {sh_bad}")
 
-    # -- 18. the kernels' record --------------------------------------------
+    # -- 19. the kernels' record --------------------------------------------
     gf_main, crc_main = gf_results[0], crc_results[0]
     bm_main, probe_main = (next(x for x in bm_results
                                 if (x["case"], x["extract"], x["probe"], x["grid"]) == key)
@@ -2899,6 +3250,7 @@ def main() -> int:
          "raft_launches": replicated["launches"]["gf_apply"],
          "integrity_launches": integrity["launches"]["gf_apply"],
          "integrity_scrub_launches": integrity["scrub_launches"],
+         "fs_launches": fsp["launches"]["gf_apply"],
          "equal": gf_main["equal"],
          "max_abs_err": gf_main["max_abs_err"], "ms": gf_main["ms"],
          "device_ms": gf_main["device_ms"], "plain_ms": gf_main["plain_ms"],

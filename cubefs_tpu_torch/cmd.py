@@ -5,14 +5,19 @@ on the ``role`` key of a JSON config,
 
     python -m cubefs_tpu_torch.cmd -c config.json
 
-for the blob plane's roles and the codec sidecar. Each role builds its
-service object(s), serves them with the RPC layer (``utils/rpc.py``),
-registers with its control plane, and blocks.
+for the file-system plane's roles, the blob plane's and the codec
+sidecar. Each role builds its service object(s), serves them with the RPC
+layer (``utils/rpc.py``), registers with its control plane, and blocks.
 
 Config keys (JSON), with the reference's names and defaults:
-  role:         clustermgr | blobnode | proxy | access | scheduler | codec
+  role:         master | metanode | datanode | clustermgr | blobnode |
+                proxy | access | scheduler | codec
   listen_host / listen_port: bind address (port 0: an ephemeral port)
-  clustermgr_addr / proxy_addr: upstreams
+  packet_port / read_port: a metanode's or datanode's binary packet
+                plane and native read plane (0: ephemeral), beside HTTP
+  master_addr / clustermgr_addr / proxy_addr: upstreams
+  replicas, allow_single_node, quota_sweep_interval, zone, rack, qos,
+  disks:        the master's, metanode's and datanode's, as the reference's
   data_dirs / data_dir / queue_dir / task_dir: storage paths
   audit_dir:    the audit log, ``<audit_dir>/<role>.audit.log``, and the
                 slow-trace log, ``<audit_dir>/slowtrace.jsonl``
@@ -33,13 +38,16 @@ Config keys (JSON), with the reference's names and defaults:
                 raises without a card), or "cpu" to run the kernels'
                 plain versions
 
-The file-system roles wait for a later slice (ROADMAP.md §1).
+A metanode and a datanode register with the master and heartbeat to it
+every 3 s. The objectnode, fuseclient, fsgateway, console, flashnode and
+flashgroupmanager roles wait for later slices (ROADMAP.md §1 item 4).
 
 Each role prints ``[<role>] listening on host:port`` once it serves. On
-SIGTERM or SIGINT it stops its service (``stop``, then ``fsm_stop``, which
-stops a clustermgr's raft node), the replicated queues a scheduler hosts,
-and then the server; an error while closing is printed and the process
-exits 1.
+SIGTERM or SIGINT it stops what it started beside its service
+(heartbeats, packet planes), the service (a master's quota sweeper,
+``stop``, then ``fsm_stop``, which stops a clustermgr's or master's raft
+node), the replicated queues a scheduler hosts, and then the server; an error while
+closing is printed and the process exits 1.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from __future__ import annotations
 import argparse
 import json
 import signal
+import sys
 import threading
 import traceback
 
@@ -59,16 +68,66 @@ def _audit_for(cfg):
     return None
 
 
-def _serve(routes, cfg):
+def _serve(routes, cfg, audit=None):
     from .utils import rpc
 
     srv = rpc.RpcServer(
         routes, host=cfg.get("listen_host", "127.0.0.1"),
         port=int(cfg.get("listen_port", 0)),
-        service=cfg["role"], audit=_audit_for(cfg),
+        service=cfg["role"], audit=audit if audit is not None else _audit_for(cfg),
     ).start()
     print(f"[{cfg['role']}] listening on {srv.addr}", flush=True)
     return srv
+
+
+def _heartbeat_loop(fn, interval=3.0):
+    """Call ``fn`` now and every ``interval`` s on a daemon thread until
+    the returned callable is called; an error is printed, not raised."""
+    stop = threading.Event()
+
+    def loop():
+        while not stop.is_set():
+            try:
+                fn()
+            except Exception as e:
+                print(f"heartbeat error: {e}", file=sys.stderr, flush=True)
+            stop.wait(interval)
+
+    threading.Thread(target=loop, daemon=True).start()
+    return stop.set
+
+
+def _fs_node(kind, svc, cfg):
+    """Serve a metanode or datanode: HTTP, then the binary packet plane
+    and the native read plane beside it (sharing HTTP's audit log),
+    register with the master and heartbeat to it."""
+    from .utils import rpc
+
+    role = cfg["role"]
+    host = cfg.get("listen_host", "127.0.0.1")
+    audit = _audit_for(cfg)
+    srv = _serve(svc, cfg, audit=audit)  # live routing: per-partition raft handlers
+    svc.addr = srv.addr
+    psrv = svc.serve_packets(host=host, port=int(cfg.get("packet_port", 0)), audit=audit)
+    print(f"[{role}] packet plane on {psrv.addr}", flush=True)
+    raddr = svc.serve_native(host=host, port=int(cfg.get("read_port", 0)))
+    if raddr:
+        print(f"[{role}] native read plane on {raddr}", flush=True)
+    master = rpc.Client(cfg["master_addr"])
+    zone, rack = cfg.get("zone", "default"), cfg.get("rack")
+
+    def info():
+        out = {"kind": kind, "addr": srv.addr, "zone": zone, "rack": rack,
+               "packet_addr": psrv.addr, "read_addr": raddr}
+        if kind == "data":
+            # the master's disk manager migrates partitions off any disk
+            # a heartbeat reports broken
+            out["disks"] = svc.disk_report()
+        return out
+
+    master.call("register", info())
+    svc.role_closers = [_heartbeat_loop(lambda: master.call("heartbeat", info())), psrv.stop]
+    return srv, master
 
 
 def run_role(cfg: dict):
@@ -79,6 +138,39 @@ def run_role(cfg: dict):
     role = cfg.get("role")
     pool = NodePool()
     device = cfg.get("device")
+
+    if role == "master":
+        from .fs.master import Master
+
+        svc = Master(pool, replicas=int(cfg.get("replicas", 3)),
+                     allow_single_node=bool(cfg.get("allow_single_node", False)),
+                     data_dir=cfg.get("data_dir"),
+                     me=cfg.get("me"), peers=cfg.get("peers"))
+        svc.start_quota_sweeper(float(cfg.get("quota_sweep_interval", 30.0)))
+        return _serve(svc, cfg), svc
+
+    if role == "metanode":
+        from .fs.metanode import MetaNode
+
+        svc = MetaNode(int(cfg.get("node_id", 0)), data_dir=cfg.get("data_dir"),
+                       node_pool=pool)
+        srv, master = _fs_node("meta", svc, cfg)
+
+        def _dp_view():
+            meta, _ = master.call("dp_view", {})
+            return {int(k): v for k, v in meta["dps"].items()}
+
+        svc.set_dp_view(_dp_view)  # enables the deferred-deletion scan
+        return srv, svc
+
+    if role == "datanode":
+        from .fs.datanode import DataNode
+
+        # the node learns its own address only after the server binds
+        svc = DataNode(int(cfg.get("node_id", 0)), cfg["data_dir"], "pending", pool,
+                       qos=cfg.get("qos"),  # {"read_bps":..., "write_bps":...}
+                       disks=cfg.get("disks"))  # multi-disk: list of dirs
+        return _fs_node("data", svc, cfg)[0], svc
 
     if role == "clustermgr":
         from .blob.clustermgr import ClusterMgr
@@ -191,12 +283,15 @@ def run_role(cfg: dict):
 
 
 def shutdown(srv, svc) -> int:
-    """Stop the service (``stop``, then ``fsm_stop``), the replicated
-    queues it hosts, then the server. Every step runs; returns 0, or 1
-    once any step raised (each error's traceback is printed to stderr)."""
+    """Stop what the role started beside the service (``role_closers``:
+    heartbeats, packet planes), the service (a master's quota sweeper,
+    ``stop``, then ``fsm_stop``), the replicated queues it hosts, then the server. Every step runs;
+    returns 0, or 1 once any step raised (each error's traceback is
+    printed to stderr)."""
     rc = 0
     queues = [getattr(svc, n, None) for n in ("repair_queue", "delete_queue")]
-    steps = ([getattr(svc, n, None) for n in ("stop", "fsm_stop")]
+    steps = (list(getattr(svc, "role_closers", ()))
+             + [getattr(svc, n, None) for n in ("stop_quota_sweeper", "stop", "fsm_stop")]
              + [q.stop for q in queues if callable(getattr(q, "stop", None))])
     for step in steps + [srv.stop]:
         if not callable(step):

@@ -1,14 +1,16 @@
-"""Cluster launcher: the blob half of the reference's docker-compose analog.
+"""Cluster launcher: the reference's docker-compose analog.
 
-The port's copy of ``cubefs_tpu/deploy/cluster.py`` for the blob plane:
-one topology JSON spawns every role as a local process (``python -m
-cubefs_tpu_torch.cmd``), waits for each to listen, and writes a state
-file with all addresses (``<workdir>/cluster.json``).
+The port's copy of ``cubefs_tpu/deploy/cluster.py``: one topology JSON
+spawns every role as a local process (``python -m cubefs_tpu_torch.cmd``),
+waits for each to listen, creates the file-system plane's initial volume
+and writes a state file with all addresses (``<workdir>/cluster.json``).
 
   python -m cubefs_tpu_torch.deploy.cluster --topo topo.json --workdir /tmp/c1
 
-Topology JSON (all keys optional), the reference's blob keys:
-  {"blobnodes": 6, "disks_per_blobnode": 9, "blob_azs": 3,
+Topology JSON (all keys optional), the reference's keys:
+  {"metanodes": 3, "datanodes": 4, "replicas": 3,
+   "volume": {"name": "vol1", "mp_count": 3, "dp_count": 4},
+   "blobnodes": 6, "disks_per_blobnode": 9, "blob_azs": 3,
    "access": true, "blob_size": 8388608, "codec": false}
 
 and the port's own:
@@ -19,12 +21,16 @@ and the port's own:
   "device": null       every role's card (None: the current CUDA
                        device), or "cpu" for the plain versions
 
-blob_azs spreads blobnodes across failure domains round-robin: an int
-yields AZ names az0..azN-1, a list supplies the names. The file-system
-plane (master, metanodes, datanodes, objectnode, fsgateway, console) is
-not ported: a topology that asks for any of it raises
-``NotImplementedError`` (ROADMAP.md §1 item 6), and absent counts are 0
-(the reference starts 3 metanodes and 4 datanodes by default).
+The file-system plane (a master, the metanodes and datanodes, then the
+volume, whose name the state file records under ``volume``) starts when
+the topology gives ``metanodes`` or ``datanodes``; the reference starts
+it always, with 3 and 4 by default, and so does the port with
+``"metanodes": 3, "datanodes": 4``. The master's address is
+``roles.master[0]``. blob_azs spreads blobnodes across failure domains
+round-robin: an int yields AZ names az0..azN-1, a list supplies the
+names. The objectnode, fsgateway and console are not ported: a topology
+that asks for any of them raises ``NotImplementedError`` (ROADMAP.md §1
+item 4).
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ import sys
 import threading
 import time
 
-FS_ROLES = ("metanodes", "datanodes", "objectnode", "fsgateway", "console")
+UNPORTED = ("objectnode", "fsgateway", "console")
 # the directory that holds the package: spawned roles import it from there
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -80,11 +86,10 @@ class Proc:
 
 class Cluster:
     def __init__(self, topo: dict, workdir: str, timeout: float = 120.0):
-        asked = [k for k in FS_ROLES if topo.get(k)]
+        asked = [k for k in UNPORTED if topo.get(k)]
         if asked:
             raise NotImplementedError(
-                f"file-system roles {asked}: the port has no file-system "
-                "plane yet (ROADMAP.md §1 item 6)")
+                f"roles {asked} are not ported yet (ROADMAP.md §1 item 4)")
         self.topo = topo
         self.workdir = workdir
         self.timeout = timeout
@@ -110,9 +115,46 @@ class Cluster:
     def _spawn(self, role: str, cfg: dict) -> str:
         return self._wait([self._start(role, cfg)])[0]
 
+    def _fs_up(self) -> None:
+        """Master, metanodes and datanodes (the nodes started together),
+        then the initial volume once the master sees every node."""
+        from ..utils import rpc
+
+        t = self.topo
+        n_meta, n_data = t.get("metanodes", 0), t.get("datanodes", 0)
+        replicas = t.get("replicas", 3)
+        master = self._spawn("master", {
+            "replicas": replicas, "allow_single_node": n_data < replicas,
+            "data_dir": os.path.join(self.workdir, "master")})
+        nodes = [self._start("metanode", {
+            "name": f"metanode{i}", "node_id": i, "master_addr": master,
+            "data_dir": os.path.join(self.workdir, f"meta{i}")}) for i in range(n_meta)]
+        nodes += [self._start("datanode", {
+            "name": f"datanode{i}", "node_id": i, "master_addr": master,
+            "data_dir": os.path.join(self.workdir, f"data{i}")}) for i in range(n_data)]
+        self._wait(nodes)
+        # nodes print "listening" before their register RPC lands; wait
+        # until the master sees the full topology
+        deadline = time.time() + self.timeout
+        while True:
+            st = rpc.call(master, "stat")[0]
+            if st["metanodes"] >= n_meta and st["datanodes"] >= n_data:
+                break
+            if time.time() > deadline:
+                raise TimeoutError(f"nodes never registered: {st}")
+            time.sleep(0.1)
+        vol = t.get("volume", {"name": "vol1"})
+        rpc.call(master, "create_volume", {
+            "name": vol.get("name", "vol1"),
+            "mp_count": vol.get("mp_count", 3),
+            "dp_count": vol.get("dp_count", 4)})
+        self.state["volume"] = vol.get("name", "vol1")
+
     def up(self) -> dict:
         t = self.topo
         engine = {"ec_engine": t["ec_engine"]} if t.get("ec_engine") else {}
+        if t.get("metanodes") or t.get("datanodes"):
+            self._fs_up()
         if t.get("blobnodes"):
             cm = self._spawn("clustermgr", {
                 "allow_colocated_units": t.get("blobnodes", 1) == 1,

@@ -1,12 +1,12 @@
 """ReplicatedFsm: the shared persistence/replication door for metadata
 services.
 
-The blob clustermgr (and, in the reference, the FS master) is a state
-machine with one discipline (role parity: the reference backs it with
-raft + RocksDB): every mutation is a record through ONE commit door,
-persisted to a wal (standalone) or committed through raft (replicated),
-with snapshot/restore built from a single serialized-state shape. This
-mixin is that door.
+Both the FS master and the blob clustermgr are state machines with the
+same discipline (role parity: the reference backs both with raft +
+RocksDB): every mutation is a record through ONE commit door, persisted
+to a wal (standalone) or committed through raft (replicated), with
+snapshot/restore built from a single serialized-state shape. This mixin
+is that door, audited once and used by both.
 
 Host class contract:
   * `_state_dict() -> dict` / `_load_state_dict(dict)` — full FSM state
@@ -22,12 +22,29 @@ Provided:
   * `is_leader` / `leader_addr` / `_leader_gate`
   * `snapshot()` — standalone wal rotation (raft compacts on its own)
 
+Incremental snapshots (master/metadata_snapshot.go + RocksDB role): a
+host that additionally implements the segment contract
+
+  * `_segments_of(record) -> list[str]` — segment ids an op dirties
+  * `_segment_state(seg_id) -> json-able | None` — current value
+    (None = the segment no longer exists)
+  * `_load_segment_state(seg_id, value)` — restore one segment
+
+gets O(dirty) standalone snapshots: applies mark segments dirty, and
+`snapshot()` writes only those into a native ordered-KV segment store
+(runtime kvstore: its own WAL + compaction bound recovery cost) before
+rotating the op WAL. Full-state `_state_dict` remains the raft
+InstallSnapshot shape — segmentation is about the LOCAL persistence
+path, which is exactly where the reference leans on RocksDB.
+
 The port's copy of ``cubefs_tpu/utils/fsm.py``: a single member keeps
-the state file (``snapshot.json``) and the wal (``wal.jsonl``) under
-``data_dir``; a group of more than one peer runs a ``parallel/raft``
-node whose directory is ``<data_dir>/raft``. Both have the reference's
-format, so either package opens what the other wrote. Waiting for later
-slices: geo-replication and the segmented snapshots (FS-plane hosts).
+the state file (``snapshot.json``), or for a segmented host the segment
+store (``segments/``, the port's ``runtime/kvstore.py``), and the wal
+(``wal.jsonl``) under ``data_dir``; a group of more than one peer runs a
+``parallel/raft`` node whose directory is ``<data_dir>/raft``. All of
+them have the reference's format, so either package opens what the
+other wrote. The geo-replication hooks are the reference's: with no tap
+and no follower mode set they do nothing.
 """
 
 from __future__ import annotations
@@ -127,6 +144,15 @@ class ReplicatedFsm:
         self._fsm_op_cache: dict[str, tuple] = {}  # op_id -> (result, exc)
         self.raft = None
         self.extra_routes: dict = {}
+        # geo-replication hooks (utils/georepl.py): the shipper tap is
+        # invoked post-apply inside the commit doors; follower mode
+        # fences mutations behind GeoRedirect (see _geo_gate)
+        self.geo_tap = None
+        self._geo_mode: str | None = None
+        self.geo_primary: str | None = None
+        self._fsm_dirty: set[str] = set()
+        self._segmented = hasattr(self, "_segments_of")
+        self._seg_store = None
         if peers and len(peers) > 1:
             from ..parallel import raft as raftlib
 
@@ -158,6 +184,49 @@ class ReplicatedFsm:
         if self.raft is not None and not self.is_leader():
             raise rpc.RpcError(self.REDIRECT,
                                f"leader={self.leader_addr() or ''}")
+
+    # ---------------- geo-replication (utils/georepl.py) ----------------
+    def _geo_gate(self) -> None:
+        """Follower fence: a geo-follower FSM serves reads but bounces
+        every mutation to the primary region with GeoRedirect (452,
+        "primary=<addr>") — the ONE mutation choke point on this class
+        (lint CFG002 pins its presence in the commit doors). Shipped
+        records from the primary enter through `geo_apply`, never
+        here."""
+        if self._geo_mode == "follower":
+            metrics.geo_redirects.inc(
+                part=getattr(self, "geo_part", ""))
+            raise rpc.RpcError(rpc.GEO_REDIRECT,
+                               f"primary={self.geo_primary or ''}")
+
+    def geo_set_mode(self, mode: str | None,
+                     primary: str | None = None) -> None:
+        """Flip this FSM between primary service (None) and geo-follower
+        ("follower", mutations fenced to `primary`)."""
+        if mode not in (None, "follower"):
+            raise ValueError(f"unknown geo mode {mode!r}")
+        self._geo_mode = mode
+        self.geo_primary = primary
+
+    def geo_apply(self, record: dict):
+        """The GeoApplier's sanctioned commit door on a follower FSM
+        (lint CFG001): apply + wal-append exactly like the standalone
+        `_commit`, but bypassing the follower fence (shipped records ARE
+        the primary's already-fenced mutations) and never re-entering
+        `geo_tap` (a follower must not echo the stream back at its
+        source). Raft-replicated hosts are not geo-apply targets — geo
+        replicates cluster-to-cluster, raft replicates within one."""
+        if self.raft is not None:
+            raise rpc.RpcError(
+                500, "geo_apply on a raft-replicated host")
+        with self._wal_lock:
+            out = self._apply_deduped(dict(record))
+            if self._segmented:
+                self._fsm_dirty.update(self._segments_of(record))
+            if self._wal is not None:
+                self._wal.write(_frame(json.dumps(record)))
+                self._wal.flush()
+        return out
 
     # ---------------- commit door ----------------
     FSM_OP_CACHE_SIZE = 4096
@@ -212,28 +281,33 @@ class ReplicatedFsm:
                 del self._fsm_op_cache[k]
 
     def _commit(self, record: dict):
+        self._geo_gate()
         if self.raft is None:
             # apply and wal-append must be one atomic step, else
             # concurrent commits can log in a different order than they
             # applied and replay to a different state
             with self._wal_lock:
                 out = self._apply_deduped(dict(record))
+                if self._segmented:
+                    self._fsm_dirty.update(self._segments_of(record))
                 if self._wal is not None:
                     self._wal.write(_frame(json.dumps(record)))
                     self._wal.flush()
+                if self.geo_tap is not None:
+                    # under the wal lock: the shipper's per-partition
+                    # sequence must match commit order
+                    self.geo_tap(record)
             return out
-        return self._propose(record)
-
-    def _propose(self, record: dict):
-        """The replicated door: one raft entry; a follower's
-        NotLeaderError becomes the 421 redirect clients follow."""
         from ..parallel.raft import NotLeaderError
 
         try:
-            return self.raft.propose(record)
+            out = self.raft.propose(record)
         except NotLeaderError as e:
             raise rpc.RpcError(self.REDIRECT,
                                f"leader={e.leader or ''}") from None
+        if self.geo_tap is not None:
+            self.geo_tap(record)
+        return out
 
     def _commit_many(self, records: list[dict]) -> list:
         """Batch commit door: ONE raft entry (or one wal-lock round in
@@ -242,18 +316,40 @@ class ReplicatedFsm:
         fanned back in order. The wal still records constituents as
         individual lines — a batch entry replays as its constituent
         records, so the replay contract is unchanged."""
-        if self.raft is not None:
-            return self._propose({"op": "__batch__", "records": list(records)})
-        with self._wal_lock:
-            outs = self._apply_deduped(
-                {"op": "__batch__", "records": [dict(r) for r in records]})
-            # only constituents that APPLIED are logged — the single-op
-            # door's contract: wal replay assumes every record
-            # re-applies cleanly
-            ok = [r for r, (res, err) in zip(records, outs) if err is None]
-            if self._wal is not None and ok:
-                self._wal.write("".join(_frame(json.dumps(r)) for r in ok))
-                self._wal.flush()
+        self._geo_gate()
+        if self.raft is None:
+            with self._wal_lock:
+                outs = self._apply_deduped(
+                    {"op": "__batch__",
+                     "records": [dict(r) for r in records]})
+                # only constituents that APPLIED are logged/dirtied —
+                # the single-op door's contract: wal replay assumes
+                # every record re-applies cleanly
+                ok = [r for r, (res, err) in zip(records, outs)
+                      if err is None]
+                if self._segmented:
+                    for r in ok:
+                        self._fsm_dirty.update(self._segments_of(r))
+                if self._wal is not None and ok:
+                    self._wal.write(
+                        "".join(_frame(json.dumps(r)) for r in ok))
+                    self._wal.flush()
+                if self.geo_tap is not None:
+                    for r in ok:  # ship applied constituents only
+                        self.geo_tap(r)
+            return outs
+        from ..parallel.raft import NotLeaderError
+
+        try:
+            outs = self.raft.propose(
+                {"op": "__batch__", "records": list(records)})
+        except NotLeaderError as e:
+            raise rpc.RpcError(self.REDIRECT,
+                               f"leader={e.leader or ''}") from None
+        if self.geo_tap is not None:
+            for r, (res, err) in zip(records, outs):
+                if err is None:
+                    self.geo_tap(r)
         return outs
 
     # ---------------- persistence ----------------
@@ -269,9 +365,26 @@ class ReplicatedFsm:
     def _restore_bytes(self, data: bytes) -> None:
         self._load_state_dict(json.loads(data))
 
+    def _seg_dir(self) -> str:
+        return os.path.join(self._fsm_data_dir, "segments")
+
+    def _open_seg_store(self):
+        if self._seg_store is None:
+            from ..runtime.kvstore import KvStore
+
+            self._seg_store = KvStore(self._seg_dir())
+        return self._seg_store
+
     def _fsm_load(self) -> None:
+        # the legacy full-state file is removed only AFTER a complete
+        # migration into the segment store — while it exists it stays
+        # authoritative (a crash mid-migration leaves a PARTIAL store)
         if os.path.exists(self._snap_path()):
             self._load_state_dict(self._read_snapshot())
+        elif self._segmented and os.path.isdir(self._seg_dir()):
+            kv = self._open_seg_store()
+            for k, v in kv.scan():
+                self._load_segment_state(k.decode(), json.loads(v))
         if os.path.exists(self._wal_path()):
             self._replay_wal()
 
@@ -331,6 +444,10 @@ class ReplicatedFsm:
             metrics.wal_torn_tail.inc()
         for rec in records:
             self._apply_deduped(rec)
+            if self._segmented:
+                # replayed ops must re-dirty their segments: the
+                # store's copy predates them
+                self._fsm_dirty.update(self._segments_of(rec))
 
     def fsm_recover_from_state(self, data: bytes) -> None:
         """Corrupt-middle recovery door: replace this host's state with
@@ -342,6 +459,10 @@ class ReplicatedFsm:
         with self._wal_lock:
             self._fsm_op_cache.clear()
             self._restore_bytes(data)
+            if self._segmented:
+                # every segment must land in the store: its current
+                # contents predate (or were poisoned alongside) the WAL
+                self._fsm_dirty.update(self._all_segments())
             if self._wal is not None:
                 self._wal.close()
             open(self._wal_path(), "w").close()
@@ -350,30 +471,56 @@ class ReplicatedFsm:
 
     def snapshot(self) -> int:
         """Standalone mode: persist state and rotate the wal (raft mode
-        compacts through its own snapshot machinery). Returns 0 (the
-        number of segments written: the port keeps full-state snapshots
-        only)."""
+        compacts through its own snapshot machinery). Segmented hosts
+        write only DIRTY segments — O(touched), not O(state). Returns
+        the number of segments written (0 for full-state hosts)."""
         if not self._fsm_data_dir or self.raft is not None:
             return 0
         with self._wal_lock:
-            tmp = self._snap_path() + ".tmp"
-            payload = json.dumps(self._state_dict())
-            with open(tmp, "w") as f:
-                # whole-file digest envelope: a flipped bit anywhere in
-                # the state payload refuses the load instead of silently
-                # restoring corrupt metadata
-                json.dump({"__wal_snap__": 2,
-                           "crc": zlib.crc32(payload.encode()),
-                           "payload": payload}, f)
-            os.replace(tmp, self._snap_path())
+            written = 0
+            if self._segmented:
+                kv = self._open_seg_store()
+                if kv.count() == 0 or os.path.exists(self._snap_path()):
+                    # first segmented snapshot (fresh store, or
+                    # migrating off a legacy full-state file): EVERY
+                    # segment must land, or rotating the wal would drop
+                    # the untouched remainder
+                    self._fsm_dirty.update(self._all_segments())
+                for seg in sorted(self._fsm_dirty):
+                    val = self._segment_state(seg)
+                    if val is None:
+                        try:
+                            kv.delete(seg.encode())
+                        except KeyError:
+                            pass
+                    else:
+                        kv.put(seg.encode(), json.dumps(val).encode())
+                    written += 1
+                self._fsm_dirty.clear()
+                # the op wal only rotates once its effects are durable
+                # in the segment store (kv_put fsyncs per mutation)
+                if os.path.exists(self._snap_path()):
+                    os.remove(self._snap_path())  # legacy file migrated
+            else:
+                tmp = self._snap_path() + ".tmp"
+                payload = json.dumps(self._state_dict())
+                with open(tmp, "w") as f:
+                    # whole-file digest envelope: a flipped bit anywhere
+                    # in the state payload refuses the load instead of
+                    # silently restoring corrupt metadata
+                    json.dump({"__wal_snap__": 2,
+                               "crc": zlib.crc32(payload.encode()),
+                               "payload": payload}, f)
+                os.replace(tmp, self._snap_path())
             if self._wal is not None:
                 self._wal.close()
             open(self._wal_path(), "w").close()
             self._wal = open(self._wal_path(), "a")
-            return 0
+            return written
 
     def fsm_stop(self) -> None:
-        """Stop the raft node of a replicated member (a single member
-        runs nothing beside its wal)."""
         if self.raft is not None:
             self.raft.stop()
+        if self._seg_store is not None:
+            self._seg_store.close()
+            self._seg_store = None

@@ -7,9 +7,13 @@ under the reference's names, labels and buckets (the RPC transport,
 ``codec_program_cache*``), and those of the blob plane and its
 utilities (repair, placement, QoS, SLO, tracing, integrity, disk
 health), the chaos harness's ``faults_injected`` and raft's
-``raft_*`` series. Any RPC server mounts ``render_text()`` at
-``GET /metrics``. Left out: the dp-split family (the port's batcher has
-no dp split) and the file-system and geo-replication families.
+``raft_*`` series, and the file-system plane's (metanode group commit
+and the client's fan-out, placement, the packet plane, tiering and the
+lifecycle scan, the geo fence's redirects). Any RPC server mounts
+``render_text()`` at ``GET /metrics``. Left out: the dp-split family
+(the port's batcher has no dp split), and the flash tier's, the elastic
+metadata plane's and geo-replication's other families (their modules
+wait for later slices).
 
 Added here: ``cubefs_codec_kernel_launches_total``, the launches of each
 CUDA kernel, counted where ``ops/_build.launch`` counts them.
@@ -391,3 +395,105 @@ disk_quarantine_transitions = DEFAULT.counter(
     "disk health state transitions: `quarantine` (io-error or latency "
     "outlier tripped), `probe_pass` (probe healed it back), "
     "`probe_fail` (probe kept it quarantined)", ("node", "event"))
+
+# the file-system plane (cubefs_tpu_torch/fs): metanode group commit,
+# the client's cross-partition fan-out coalescer, placement and the
+# range redirects a metanode answers
+meta_batch_entries = DEFAULT.counter(
+    "cubefs_meta_batch_entries_total",
+    "__batch__ raft entries proposed by the metanode submit coalescer",
+    ("pid",))
+meta_batched_ops = DEFAULT.counter(
+    "cubefs_meta_batched_ops_total",
+    "mutations carried inside coalesced __batch__ entries", ("pid",))
+meta_ops_per_batch = DEFAULT.histogram(
+    "cubefs_meta_ops_per_batch_entry",
+    "mutations carried per coalesced submit (1 = uncontended fast path)",
+    ("pid",), buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256))
+meta_fanout_batches = DEFAULT.counter(
+    "cubefs_meta_fanout_batches_total",
+    "client-side cross-partition fan-out drains (one submit_batch RPC "
+    "per drain)", ("pid",))
+meta_fanout_ops = DEFAULT.counter(
+    "cubefs_meta_fanout_ops_total",
+    "mutations carried by client fan-out drains", ("pid",))
+meta_fanout_inflight = DEFAULT.histogram(
+    "cubefs_meta_fanout_partitions_inflight",
+    "partitions with a batch in flight when a fan-out drain launches — "
+    "the client-side K window actually used",
+    buckets=(1, 2, 3, 4, 6, 8, 12, 16, 24, 32))
+fs_placement_misplaced = DEFAULT.gauge(
+    "cubefs_fs_placement_misplaced_replicas",
+    "dp replicas colocated in an AZ beyond the one-per-AZ fair share; "
+    "the rate-limited misplaced-replica sweep drives this to zero")
+meta_range_redirects = DEFAULT.counter(
+    "cubefs_meta_range_redirects_total",
+    "requests bounced with the 453 range-moved routing code (frozen "
+    "sub-range during handoff, or a stale client map after COMMIT)")
+
+# cold-data lifecycle tiering (fs/tiering.py, fs/lcnode.py)
+tiering_transitions = DEFAULT.counter(
+    "cubefs_tiering_transitions_total",
+    "cold-tier migration attempts by outcome: `migrated` released the "
+    "hot extents after a verified blob copy, `fenced` lost the race to "
+    "a concurrent write/rename and rolled back, `resumed` finished a "
+    "half-done migration found by rescan, `aborted` rolled one back, "
+    "`verify_failed` rejected a corrupt blob copy before release, "
+    "`error` died mid-flight (state machine resumes it)", ("outcome",))
+tiering_bytes = DEFAULT.counter(
+    "cubefs_tiering_bytes_total",
+    "payload bytes moved across the fs<->blob bridge",
+    ("direction",))  # cold (migrate) / hot (untier) / read (read-through)
+tiering_cold_reads = DEFAULT.counter(
+    "cubefs_tiering_cold_reads_total",
+    "read-through requests served from the blob plane")
+tiering_untiered = DEFAULT.counter(
+    "cubefs_tiering_untiered_total",
+    "re-heat promotions back to datanode extents by outcome",
+    ("outcome",))
+tiering_orphans_reaped = DEFAULT.counter(
+    "cubefs_tiering_orphans_reaped_total",
+    "unreachable blob copies deleted by the deferred blob-free reaper")
+tiering_blob_freelist = DEFAULT.gauge(
+    "cubefs_tiering_blob_freelist",
+    "blob locations queued for deferred deletion (nonzero between a "
+    "rollback/overwrite/unlink and the next reaper sweep)")
+tiering_orphans_reconciled = DEFAULT.counter(
+    "cubefs_tiering_orphans_reconciled_total",
+    "leaked blob bids found by inventory reconciliation (the "
+    "put->blob_written crash window) and enqueued for the reaper")
+lc_scan_errors = DEFAULT.counter(
+    "cubefs_lc_scan_errors_total",
+    "lifecycle scan loop iterations that raised (loop stays alive)")
+
+# the multiplexed streaming packet plane (utils/packet.py)
+pkt_frames = DEFAULT.counter(
+    "cubefs_pkt_frames_total",
+    "binary-plane frames moved, by direction (`tx`/`rx`) and side "
+    "(`client`/`server`)", ("dir", "side"))
+pkt_chunk_bytes = DEFAULT.counter(
+    "cubefs_pkt_chunk_bytes_total",
+    "binary-plane bytes moved (headers + args + payload chunks), by "
+    "direction and side", ("dir", "side"))
+pkt_mux_conns = DEFAULT.gauge(
+    "cubefs_pkt_mux_conns",
+    "live client-side mux connections (one shared socket per address)")
+pkt_mux_streams = DEFAULT.gauge(
+    "cubefs_pkt_mux_streams",
+    "requests currently in flight across all mux connections (streams "
+    "registered and not yet resolved)")
+pkt_mux_queue_wait = DEFAULT.histogram(
+    "cubefs_pkt_mux_queue_wait_seconds",
+    "wait for the shared connection's per-frame send slot — how long "
+    "one chunk queued behind other streams' frames",
+    buckets=(0.00005, 0.0002, 0.001, 0.005, 0.02, 0.1, 0.5, 2))
+pkt_stream_drops = DEFAULT.counter(
+    "cubefs_pkt_stream_drops_total",
+    "streams failed by a per-chunk CRC mismatch while the connection "
+    "itself was kept (framing intact)", ("side",))
+
+# the geo-replication fence of utils/fsm.py and the metanode
+geo_redirects = DEFAULT.counter(
+    "cubefs_geo_redirects_total",
+    "mutations bounced off a follower region with GeoRedirect (the sdk "
+    "retries them against the primary)", ("part",))

@@ -4,7 +4,8 @@ Each scenario is the reference's source with every ``cubefs_tpu`` import
 pointed at the port (``port_copy``); a blob scenario's cluster is the
 port's in-process cluster of ``tests/test_torch_blob.py`` (``device=
 "cpu"``, engine ``cuda``: the device path on the plain version) where the
-reference builds its own. The file-system, dial, QoS-drill and AZ
+reference builds its own. The file-system plane's scenarios run on the
+port's metanode and datanode; the flash-tier, dial, QoS-drill and AZ
 scenarios wait for the modules they drive (ROADMAP.md §1).
 """
 
@@ -33,6 +34,10 @@ SCENARIOS = {  # the reference's scenarios whose modules the port holds
     "test_faultinject_demo_smoke",
     "test_pipelined_leader_kill_resolves_every_waiter_once",
     "test_pipelined_follower_partition_drains_inflight",
+    # the file-system plane's dedup doors and group commit
+    "test_alloc_ino_exactly_once_under_duplicate_and_drop_after",
+    "test_alloc_extent_exactly_once_under_duplicate",
+    "test_raft_leader_killed_mid_batch_no_partial_apply",
 }
 
 

@@ -696,9 +696,122 @@ def test_launched_cluster_stitches_traces_and_audits_every_call(launched, rng):
     assert http_post(sched, "stats", {})[0] == 200
 
 
+FS_ROLES = ["master", "metanode", "datanode"]
+
+
+@pytest.mark.parametrize("role", FS_ROLES)
+def test_fs_role_route_set_equals_the_reference(ref, traces, still_qos, tmp_path, role):
+    """The file-system roles serve the reference's route sets (a metanode's
+    and a datanode's register with a port master role over HTTP) and a
+    packet plane and a native read plane beside HTTP; the port's role
+    stops them and exits 0."""
+    msrv, master = cmd.run_role({"role": "master", "allow_single_node": True,
+                                 "data_dir": str(tmp_path / "upstream")})
+
+    def run(pkg_cmd, tag):
+        d = tmp_path / tag
+        srv, svc = pkg_cmd.run_role({"role": role, "listen_port": 0, "master_addr": msrv.addr,
+                                     "data_dir": str(d / role), "allow_single_node": True})
+        try:
+            planes = role == "master" or (svc._native_h is not None
+                                          and svc.native_addr is not None)
+            return _served(srv), http_post(srv.addr, "no_such_route", {})[0], planes
+        finally:
+            if pkg_cmd is cmd:
+                assert cmd.shutdown(srv, svc) == 0
+            else:
+                _ref_close(srv, svc)
+
+    try:
+        got, want = run(cmd, "port"), run(ref.cmd, "ref")
+        assert got == want and got[1] == 404 and got[2]
+        if role != "master":
+            kind = "metanodes" if role == "metanode" else "datanodes"
+            assert rpc.call(msrv.addr, "stat")[0][kind] == 2
+    finally:
+        assert cmd.shutdown(msrv, master) == 0
+
+
+@pytest.fixture(scope="module")
+def launched_fs(tmp_path_factory):
+    """The launcher's file-system plane with its cold tier's blob plane on
+    the CPU: a master, 3 metanodes, 3 datanodes (replicas 3) and a volume
+    of 2 meta and 2 data partitions, a clustermgr and 4 blobnodes x 3
+    disks, each a process of its own."""
+    wd = tmp_path_factory.mktemp("launched_fs")
+    c = deploy.Cluster({"metanodes": 3, "datanodes": 3, "replicas": 3,
+                        "volume": {"name": "fsvol", "mp_count": 2, "dp_count": 2},
+                        "blobnodes": 4, "disks_per_blobnode": 3, "access": False,
+                        "device": "cpu"}, str(wd), timeout=120.0)
+    codes = {}
+    try:
+        yield c, c.up(), wd, codes
+    finally:
+        codes.update(c.down())
+
+
+def test_launched_fs_plane_round_trips_tiers_and_exits_0(launched_fs, still_qos, monkeypatch):
+    """A file written through a client of the launched plane reads back
+    byte for byte; one aged file is tiered into the blob roles by a
+    lifecycle scan (kernel A's plain version encodes it in this process)
+    and reads back cold; the state file names every role and the volume."""
+    from cubefs_tpu_torch.blob.sdk import BlobClient
+    from cubefs_tpu_torch.fs.client import FileSystem
+    from cubefs_tpu_torch.fs.lcnode import LcNode, LifecycleRule
+
+    c, state, wd, _ = launched_fs
+    with open(wd / "cluster.json") as f:
+        assert json.load(f) == state
+    assert {r: len(a) for r, a in state["roles"].items()} == {
+        "master": 1, "metanode": 3, "datanode": 3, "clustermgr": 1, "blobnode": 4}
+    assert state["volume"] == "fsvol"
+    view = rpc.call(state["roles"]["master"][0], "client_view", {"name": "fsvol"})[0]["volume"]
+    assert len(view["mps"]) == 2 and len(view["dps"]) == 2
+    pool = rpc.NodePool()
+    monkeypatch.setenv("CUBEFS_TIERING", "1")
+    fs = FileSystem(view, pool, blob_client=BlobClient(
+        state["roles"]["clustermgr"][0], pool,
+        access.AccessConfig(blob_size=BLOB, device="cpu")))
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                fs.mkdir("/cold")
+                break
+            except Exception:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.1)
+        rng = np.random.default_rng(31)
+        hot, cold = (rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in (700_001, 300_007))
+        fs.write_file("/hot.bin", hot)
+        ino = fs.write_file("/cold/c.bin", cold)
+        assert fs.read_file("/hot.bin") == hot
+        fs.meta.set_attr(ino, mtime=time.time() - 7200)
+        lc = LcNode(fs, engine=fs.tiering)
+        lc.set_rules([LifecycleRule("tier", prefix="/cold/", transition_after_s=3600)])
+        assert lc.scan_once().transitioned == 1
+        inode = fs.meta.inode_get(ino)
+        assert not inode["extents"] and inode["xattr"].get("cold.location")
+        assert fs.read_file("/cold/c.bin") == cold
+    finally:
+        for cl in (*fs.meta._packet_clients.values(), *fs.data._packet_clients.values()):
+            cl.close()
+
+
+def test_launched_fs_roles_exit_0_on_sigterm(launched_fs):
+    """Every role of the launched planes stops on SIGTERM with exit 0."""
+    c, _, _, codes = launched_fs
+    codes.update(c.down())
+    assert len(codes) == 12 and all(rc == 0 for rc in codes.values()), codes
+
+
 def test_launcher_refuses_file_system_roles(tmp_path):
-    for topo in ({"metanodes": 3}, {"datanodes": 1, "blobnodes": 1}, {"objectnode": True}):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 6"):
+    """The roles of the file-system plane still to port (objectnode,
+    fsgateway, console) are refused before anything starts."""
+    for topo in ({"objectnode": True}, {"fsgateway": True, "metanodes": 3},
+                 {"console": True, "datanodes": 1, "blobnodes": 1}):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 4"):
             deploy.Cluster(topo, str(tmp_path))
     assert not os.listdir(tmp_path)
 
