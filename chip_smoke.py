@@ -78,8 +78,16 @@ files from 8 threads (group commit read from the metanodes'
 (kernel A encodes each tier PUT here, and rebuilds each cold read with a
 blobnode process stopped), holds their parity against the plain version,
 re-heats one, reaps, and reads every file again with a datanode process
-stopped. Each phase prints one JSON line; any failure, in any rank,
-raises.
+stopped. Then the S3 gateway (phase ``s3``): the same planes and the
+``objectnode`` role, every request SigV4-signed over ``http.client``:
+16 objects of 64 MiB from 4 threads read back whole and in ranges, a
+256 MiB multipart upload in 32 parts of 8 MiB, 2,048 small objects PUT,
+HEAD and GET from 8 threads, listed in pages of 1,000 and batch-deleted,
+three refusals, and 4 objects tiered by the bucket's own lifecycle rule
+(kernel A encodes each tier PUT in this process), their parity held
+against the plain version, read cold through a gateway in this process,
+healthy and with a blobnode process stopped (A rebuilds). Each phase
+prints one JSON line; any failure, in any rank, raises.
 
 The last lines are the kernels' record, the card's name and power limit
 as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -89,6 +97,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import functools
 import http.client
 import itertools
@@ -103,6 +112,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.parse
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
@@ -155,6 +165,18 @@ SN_ITEMS, SN_VALUE, SN_THREADS = 16384, 1024, 8  # phase shardnode: 16 MiB of 1 
 FS_FILES, FS_FILE, FS_WRITERS = 16, 64 * MIB, 4
 FS_META_THREADS, FS_META_FILES, FS_META_SIZE = 8, 256, 4096
 FS_TIER = 4
+# phase s3: the objectnode role over the same planes; 16 objects of 64 MiB
+# from 4 threads (1 GiB), one multipart object of 256 MiB in 32 parts of
+# 8 MiB (the AWS CLI's multipart_chunksize), 8 threads x 256 objects of
+# 4 KiB (phase fs's cut), listings and DeleteObjects in pages of 1,000
+# (S3's default max-keys and its batch cap), 4 objects tiered
+S3_OBJECTS, S3_OBJECT, S3_WRITERS = 16, 64 * MIB, 4
+S3_MULTIPART, S3_PART = 256 * MIB, 8 * MIB
+S3_SMALL_THREADS, S3_SMALL, S3_SMALL_SIZE = 8, 256, 4096
+S3_PAGE = 1000
+S3_TIER = 4
+S3_OWNER = {"access_key": "AKIDSMOKEOWNER000001", "secret_key": "smoke-owner-secret-key"}
+S3_STRANGER = {"access_key": "AKIDSMOKESTRANGER001", "secret_key": "smoke-stranger-secret"}
 # the C and D instantiations the kernels' record reports: (case, extract, probe, grid)
 RECORDED_BM = (("tuning_rows_2x12_B4", "bcast", None, "flat"),
                ("tuning_rows_2x12_B4", "bcast", "nodot", "stripe"))
@@ -280,6 +302,62 @@ def parity_equals_plain(vol: dict, bid: int, n: int, m: int) -> bool:
     stripe = np.stack(rows)
     plain = rs_kernel.encode_parity(torch.from_numpy(stripe[None, :n].copy()), m)
     return bool(np.array_equal(plain[0].numpy(), stripe[n:]))
+
+
+class Quiet:
+    """The QoS gate's burn-rate source, pinned: a phase's own write burst
+    would brown out ``SCRUB`` and defer every scrub step and migrate."""
+
+    def snapshot(self):
+        return {}
+
+
+def run_threads(n: int, fn) -> float:
+    """``fn(i)`` for i < n, each on a thread of its own; the seconds taken."""
+    t = time.perf_counter()
+    with ThreadPoolExecutor(n) as ex:
+        list(ex.map(fn, range(n)))
+    return time.perf_counter() - t
+
+
+def op_stats(ms: list, secs: float) -> dict:
+    """Op count, rate and the median and p99 of per-op milliseconds."""
+    ms = sorted(ms)
+    return {"ops": len(ms), "seconds": secs, "ops_s": len(ms) / secs,
+            "p50_ms": ms[len(ms) // 2], "p99_ms": ms[min(len(ms) - 1, int(len(ms) * 0.99))]}
+
+
+def tiered_volumes(cmgr: str, locs: list) -> dict:
+    """The clustermgr's record of every volume the tiered locations use."""
+    vols = {}
+    for loc in locs:
+        for sl in loc["slices"]:
+            if sl["vid"] not in vols:
+                vols[sl["vid"]] = rpc_post(cmgr, "get_volume", {"vid": sl["vid"]})[1]["volume"]
+    return vols
+
+
+def tiered_parity_equal(vols: dict, locs: list, n: int, m: int) -> list[bool]:
+    """``parity_equals_plain`` for every blob of the tiered locations."""
+    return [parity_equals_plain(vols[sl["vid"]], bid, n, m) for loc in locs
+            for sl in loc["slices"] for bid in range(sl["min_bid"], sl["min_bid"] + sl["count"])]
+
+
+def stop_a_blobnode(c, blobnodes: list, vols: dict, locs: list, n: int, m: int) -> tuple:
+    """SIGTERM the blobnode process holding the most units of the tiered
+    volumes among those whose loss leaves every volume at most ``m``
+    units short; returns its name, its exit code and the tiered blobs
+    that lost a data unit (each read of one decodes)."""
+    held = {bn: {vid: [u["index"] for u in v["units"] if u["node_addr"] == bn]
+                 for vid, v in vols.items()} for bn in blobnodes}
+    victim = max((bn for bn in blobnodes if max(len(ix) for ix in held[bn].values()) <= m),
+                 key=lambda bn: sum(len(ix) for ix in held[bn].values()))
+    proc = next(p for p in c.procs if p.addr == victim)
+    proc.p.terminate()
+    code = proc.p.wait(60)
+    lost = sum(sl["count"] for loc in locs for sl in loc["slices"]
+               if any(i < n for i in held[victim][sl["vid"]]))
+    return proc.name, code, lost
 
 
 def start_server(root: str, cfg: dict, workdir: str) -> tuple[subprocess.Popen, str]:
@@ -1356,10 +1434,6 @@ def integrity_phase(dev, card: str, *, put: int = BLOB_PUT, n_objects: int = INT
     from cubefs_tpu_torch.utils import faultinject as fi
     from cubefs_tpu_torch.utils import metrics, qos, rpc
 
-    class Quiet:  # the gate's burn-rate source, pinned: no path browns out by itself
-        def snapshot(self):
-            return {}
-
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED + 13)
     print(json.dumps({"phase": "integrity", "card": card}), flush=True)
@@ -1684,9 +1758,16 @@ def shardnode_phase(dev, card: str, *, items: int = SN_ITEMS, value: int = SN_VA
             time.sleep(0.05)
         raise AssertionError(f"phase shardnode: timed out waiting for {what}")
 
+    ambiguous = collections.Counter()  # method -> retried raft commit timeouts
+
     def kv(method: str, shard: dict, args: dict, body: bytes = b"", timeout: float = 60.0):
         """One call on the shard's leader: a 421 names it, a member that is
-        down or not yet elected passes the call to the next."""
+        down or not yet elected passes the call to the next. A ``kv_put``
+        whose raft entry was not committed within the proposal timeout
+        (a 500 ``TimeoutError``: its outcome is unknown, as when a leader
+        change dropped the entry and no later entry reached its index) is
+        sent again, since putting the same bytes twice is one put; the
+        retries are counted in the record."""
         sid, members = shard["shard_id"], shard["addrs"]
         addr = leaders.get(sid, members[0])
         deadline = time.perf_counter() + timeout
@@ -1698,8 +1779,11 @@ def shardnode_phase(dev, card: str, *, items: int = SN_ITEMS, value: int = SN_VA
                 leaders[sid] = addr
                 return out
             except rpc.RpcError as e:
-                if e.code not in (421, 404, 503):
+                unknown = (e.code == 500 and method == "kv_put"
+                           and "not committed in time" in e.message)
+                if e.code not in (421, 404, 503) and not unknown:
                     raise
+                ambiguous[method] += unknown
                 leader = e.message.removeprefix("leader=").strip() if e.code == 421 else ""
             except OSError:
                 pass
@@ -1728,7 +1812,7 @@ def shardnode_phase(dev, card: str, *, items: int = SN_ITEMS, value: int = SN_VA
         ranked = sorted(lat)
         cases[label] = {"ops": items, "threads": threads, "seconds": wall,
                         "ops_s": items / wall, "p50_ms": statistics.median(lat),
-                        "p99_ms": ranked[int(0.99 * (items - 1))]}
+                        "p99_ms": ranked[int(0.99 * (items - 1))], "max_ms": ranked[-1]}
         return out
 
     def get_all(label: str) -> bool:
@@ -1740,6 +1824,14 @@ def shardnode_phase(dev, card: str, *, items: int = SN_ITEMS, value: int = SN_VA
     def terms() -> dict:
         return {(a, sid): r.status()["term"] for a, (sn, _, _) in served.items()
                 for sid, r in sn.rafts.items()}
+
+    def newest_terms(by_member: dict) -> dict:
+        """Each shard's newest term over its members: the terms (elections,
+        won or not) that the group has begun."""
+        out: dict = {}
+        for (_, sid), term in by_member.items():
+            out[sid] = max(out.get(sid, 0), term)
+        return out
 
     keys = [f"{int(h):04x}/obj{j:05d}" for j, h in enumerate(rng.integers(0, 1 << 16, items))]
     values = rng.integers(0, 256, items * value, dtype=np.uint8)
@@ -1766,8 +1858,12 @@ def shardnode_phase(dev, card: str, *, items: int = SN_ITEMS, value: int = SN_VA
         startup_s = time.perf_counter() - t
 
         # -- puts, gets, a prefix ---------------------------------------------
+        terms_before_put = terms()
         timed_ops("put", lambda j: kv("kv_put", route(keys[j]), {"key": keys[j]},
                                       values[j * value:(j + 1) * value].tobytes()))
+        cases["put"]["new_terms"] = sum(newest_terms(terms()).values()) - sum(
+            newest_terms(terms_before_put).values())
+        cases["put"]["unknown_outcome_retries"] = ambiguous["kv_put"]
         get_all("get")
         prefix = keys[0][:2]
         listed = kv("kv_list", route(prefix), {"prefix": prefix, "limit": items})[0]["keys"]
@@ -1900,10 +1996,6 @@ def fs_phase(dev, card: str, *, files: int = FS_FILES, file_size: int = FS_FILE,
     from cubefs_tpu_torch.runtime import fsnative
     from cubefs_tpu_torch.utils import metrics, packet, qos, rpc
 
-    class Quiet:  # the gate's burn-rate source, pinned: the phase's own write
-        def snapshot(self):  # burst would brown out SCRUB and defer every migrate
-            return {}
-
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED + 17)
     print(json.dumps({"phase": "fs", "card": card}), flush=True)
@@ -1942,12 +2034,6 @@ def fs_phase(dev, card: str, *, files: int = FS_FILES, file_size: int = FS_FILE,
                 raise AssertionError(f"phase fs: timed out waiting for {what}: {err}")
             time.sleep(0.1)
 
-    def run_threads(n: int, fn) -> float:
-        t = time.perf_counter()
-        with ThreadPoolExecutor(n) as ex:
-            list(ex.map(fn, range(n)))
-        return time.perf_counter() - t
-
     def reads(label: str, paths: list, want: list, threads: int) -> None:
         got = [None] * len(paths)
 
@@ -1968,11 +2054,6 @@ def fs_phase(dev, card: str, *, files: int = FS_FILES, file_size: int = FS_FILE,
 
     def native_ops(addrs: list) -> int:
         return sum(rpc_post(a, "stat", {})[1]["native_read_ops"] for a in addrs)
-
-    def op_stats(ms: list, secs: float) -> dict:
-        ms = sorted(ms)
-        return {"ops": len(ms), "seconds": secs, "ops_s": len(ms) / secs,
-                "p50_ms": ms[len(ms) // 2], "p99_ms": ms[min(len(ms) - 1, int(len(ms) * 0.99))]}
 
     try:
         t = time.perf_counter()
@@ -2073,14 +2154,8 @@ def fs_phase(dev, card: str, *, files: int = FS_FILES, file_size: int = FS_FILE,
                                              for i, loc in zip(inodes, locs))}
         mode = cm.CodeMode(locs[0]["codemode"])
         tac = cm.tactic(mode)
-        vols = {}
-        for loc in locs:
-            for sl in loc["slices"]:
-                if sl["vid"] not in vols:
-                    vols[sl["vid"]] = rpc_post(cmgr, "get_volume", {"vid": sl["vid"]})[1]["volume"]
-        parity_equal = [parity_equals_plain(vols[sl["vid"]], bid, tac.n, tac.m)
-                        for loc in locs for sl in loc["slices"]
-                        for bid in range(sl["min_bid"], sl["min_bid"] + sl["count"])]
+        vols = tiered_volumes(cmgr, locs)
+        parity_equal = tiered_parity_equal(vols, locs, tac.n, tac.m)
 
         def cold_reads(label: str) -> None:
             a0, ms, got = a_launches(), [], []
@@ -2094,18 +2169,10 @@ def fs_phase(dev, card: str, *, files: int = FS_FILES, file_size: int = FS_FILE,
         cold_reads("cold_read")
 
         # -- one blobnode process stopped: degraded cold reads -------------------
-        held = {bn: {vid: [u["index"] for u in v["units"] if u["node_addr"] == bn]
-                     for vid, v in vols.items()} for bn in roles["blobnode"]}
-        victim = max((bn for bn in roles["blobnode"]
-                      if max(len(ix) for ix in held[bn].values()) <= tac.m),
-                     key=lambda bn: sum(len(ix) for ix in held[bn].values()))
-        bproc = next(p for p in c.procs if p.addr == victim)
-        bproc.p.terminate()
-        blob_victim_exit = bproc.p.wait(60)
-        lost_data_blobs = sum(sl["count"] for loc in locs for sl in loc["slices"]
-                              if any(i < tac.n for i in held[victim][sl["vid"]]))
+        stopped, blob_victim_exit, lost_data_blobs = stop_a_blobnode(
+            c, roles["blobnode"], vols, locs, tac.n, tac.m)
         cold_reads("degraded_cold_read")
-        cases["degraded_cold_read"].update({"stopped": bproc.name,
+        cases["degraded_cold_read"].update({"stopped": stopped,
                                             "blobs_lost_a_data_unit": lost_data_blobs})
 
         # -- re-heat: one more read crosses the threshold; the scan untiers -----
@@ -2180,6 +2247,409 @@ def fs_phase(dev, card: str, *, files: int = FS_FILES, file_size: int = FS_FILE,
                                              "batch_entries": batch_entries},
             "reheat": reheat, "parity_blobs": len(parity_equal),
             "exit_codes": {**codes}, "launches": launches, "checks": checks}
+
+
+def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OBJECT,
+             writers: int = S3_WRITERS, multipart: int = S3_MULTIPART, part: int = S3_PART,
+             small_threads: int = S3_SMALL_THREADS, small: int = S3_SMALL,
+             small_size: int = S3_SMALL_SIZE, page: int = S3_PAGE, tier: int = S3_TIER,
+             blob_size: int = BLOB, device: str | None = None) -> dict:
+    """Phase ``s3``: the S3 gateway as its users start it. The launcher
+    starts what phase ``fs`` starts (a master, 3 metanodes, 4 datanodes at
+    replicas 3, the volume ``vol1`` of 3 meta and 4 data partitions, a
+    clustermgr and 6 blobnodes x 3 disks) and the ``objectnode`` role,
+    which serves ``vol1`` as bucket ``bkt`` to an owner (``rw``) and a
+    stranger with no grant, each a ``python -m cubefs_tpu_torch.cmd``
+    process. Every request is SigV4-signed by the port's
+    ``s3auth.sign_v4`` over ``http.client`` (one keep-alive connection a
+    thread).
+
+    Large objects: ``objects`` of ``obj_size`` bytes PUT from ``writers``
+    threads, each read back (bytes and MD5 ETag) and read in three ranges
+    (the first MiB, the last, one in the middle). Multipart: one object of
+    ``multipart`` bytes in parts of ``part`` bytes from ``writers``
+    threads, the completion (which reads every part and writes the body
+    again) timed alone; its ETag is the MD5 of the whole object. Small
+    objects: ``small_threads`` threads x ``small`` objects of
+    ``small_size`` bytes, PUT, HEAD and GET timed per op;
+    ListObjectsV2 of them in pages of ``page`` keys, with and without a
+    delimiter; DeleteObjects in batches of ``page``, then an empty
+    listing. Refusals: anonymous and stranger PUTs and a bad signature
+    each answer 403. Cold tier: ``tier`` objects of ``obj_size`` bytes PUT
+    under ``cold/`` and a ``Transition`` rule of 1 day PUT on ``cold/``,
+    both through the role; the objects aged through a ``FileSystem`` in
+    this process with ``CUBEFS_TIERING=1`` whose ``BlobClient``'s
+    ``AccessHandler`` runs engine ``cuda`` on ``dev`` (8 MiB blobs);
+    ``LcNode.load_rules_from_bucket`` adopts the rule and one scan tiers
+    the objects (kernel A encodes each tier PUT stack here); each tiered
+    blob's parity, fetched from the blobnodes, must equal the plain
+    version. An ``ObjectNode`` in this process over that ``FileSystem``
+    with the same users serves cold GETs, timed healthy and with one
+    blobnode process stopped (A rebuilds each blob that lost a data
+    unit). What the role answers for a tiered object (its
+    ``FileSystem`` has no blob client: the object's size in zero bytes,
+    a limit shared with the reference) is recorded and checked. Every
+    role must exit 0 on SIGTERM. ``device`` is the roles' (None: the
+    card). Returns the record with ``checks`` and ``launches`` (this
+    process's)."""
+    import hashlib
+    import xml.etree.ElementTree as ET
+
+    from cubefs_tpu_torch.blob.access import AccessConfig
+    from cubefs_tpu_torch.blob.sdk import BlobClient
+    from cubefs_tpu_torch.codec import codemode as cm
+    from cubefs_tpu_torch.deploy.cluster import Cluster
+    from cubefs_tpu_torch.fs import authnode, s3auth
+    from cubefs_tpu_torch.fs.client import FileSystem
+    from cubefs_tpu_torch.fs.lcnode import LcNode
+    from cubefs_tpu_torch.fs.objectnode import ObjectNode
+    from cubefs_tpu_torch.ops import _build
+    from cubefs_tpu_torch.runtime import fsnative
+    from cubefs_tpu_torch.utils import qos, rpc
+
+    class S3:
+        """SigV4-signed requests to one gateway, one keep-alive
+        ``http.client`` connection per thread."""
+
+        def __init__(self, addr: str):
+            self.addr = addr
+            self.local = threading.local()
+
+        def req(self, method: str, path: str, body: bytes = b"", query: str = "",
+                headers: dict | None = None, cred: dict | None = S3_OWNER,
+                bad_signature: bool = False) -> tuple[int, bytes, dict]:
+            hdrs = {k.lower(): v for k, v in (headers or {}).items()}
+            if cred is not None:
+                amz = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime())
+                hdrs.update({"host": self.addr, "x-amz-date": amz,
+                             "x-amz-content-sha256": hashlib.sha256(body).hexdigest()})
+                auth = s3auth.sign_v4(method, path, query, hdrs, body, cred["access_key"],
+                                      cred["secret_key"], amz)
+                if bad_signature:
+                    auth = auth[:-1] + ("0" if auth[-1] != "0" else "1")
+                hdrs["authorization"] = auth
+            conn = getattr(self.local, "conn", None)
+            if conn is None:
+                host, port = self.addr.rsplit(":", 1)
+                conn = self.local.conn = http.client.HTTPConnection(host, int(port), timeout=600)
+            try:
+                conn.request(method, path + (f"?{query}" if query else ""), body=body or None,
+                             headers=hdrs)
+                resp = conn.getresponse()
+                data = resp.read()
+            except (http.client.HTTPException, OSError):
+                conn.close()
+                self.local.conn = None
+                raise
+            return resp.status, data, {k.lower(): v for k, v in resp.getheaders()}
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 19)
+    print(json.dumps({"phase": "s3", "card": card}), flush=True)
+    fsnative.load()  # built once for every role
+    workdir = tempfile.mkdtemp(prefix="cubefs-smoke-s3-")
+    gate = (qos.DEFAULT._tracker, qos.DEFAULT._levels, qos.DEFAULT._last_refresh)
+    qos.DEFAULT._tracker, qos.DEFAULT._levels = Quiet(), {}
+    qos.DEFAULT._last_refresh = float("-inf")
+    saved_env = {v: os.environ.pop(v, None) for v in ("CUBEFS_TIERING", "CUBEFS_UNTIER_HOT")}
+    users = [{"access_key": S3_OWNER["access_key"], "secret_key": S3_OWNER["secret_key"],
+              "grants": {"vol1": "rw"}},
+             {"access_key": S3_STRANGER["access_key"], "secret_key": S3_STRANGER["secret_key"]}]
+    topo = {"metanodes": 3, "datanodes": 4, "replicas": 3,
+            "volume": {"name": "vol1", "mp_count": 3, "dp_count": 4},
+            "blobnodes": BLOB_NODES, "disks_per_blobnode": BLOB_DISKS, "access": False,
+            "objectnode": True, "bucket": "bkt", "users": users, "device": device}
+    c = Cluster(topo, workdir, timeout=300.0)
+    cases: dict[str, dict] = {}
+    fs = node = None
+    codes: dict = {}
+
+    def a_launches() -> int:
+        return _build.LAUNCHES["gf_apply"]
+
+    def timed_ops(kind: str, n: int, nthreads: int, fn, nbytes: int = 0) -> list:
+        """``fn(j)`` for j < n from ``nthreads`` threads; returns each
+        answer, records the case."""
+        got, ms, lock = [None] * n, [], threading.Lock()
+
+        def work(i):
+            mine = []
+            for j in range(i, n, nthreads):
+                t = time.perf_counter()
+                got[j] = fn(j)
+                mine.append((time.perf_counter() - t) * 1e3)
+            with lock:
+                ms.extend(mine)
+        cases[kind] = op_stats(ms, run_threads(nthreads, work))
+        if nbytes:
+            cases[kind].update(bytes=nbytes, gib_s=nbytes / cases[kind]["seconds"] / 2**30)
+        return got
+
+    def etag(h: dict) -> str:
+        return h.get("etag", "").strip('"')
+
+    def xml_texts(body: bytes, tag: str) -> list[str]:
+        return [e.text or "" for e in ET.fromstring(body).iter()
+                if e.tag.rsplit("}", 1)[-1] == tag]
+
+    def list_v2(s3: S3, prefix: str, delimiter: str | None) -> dict:
+        keys, prefixes, pages, token = [], [], 0, None
+        t = time.perf_counter()
+        while True:
+            q = {"list-type": "2", "max-keys": str(page), "prefix": prefix}
+            if delimiter:
+                q["delimiter"] = delimiter
+            if token:
+                q["continuation-token"] = token
+            st, body, _ = s3.req("GET", "/bkt", query=urllib.parse.urlencode(q))
+            if st != 200:
+                raise AssertionError(f"phase s3: ListObjectsV2 answered {st}: {body[:300]}")
+            pages += 1
+            keys += [k for k in xml_texts(body, "Key")]
+            prefixes += xml_texts(body, "Prefix")[1:]  # the first is the request's
+            if xml_texts(body, "IsTruncated") != ["true"]:
+                break
+            token = xml_texts(body, "NextContinuationToken")[0]
+        return {"keys": len(keys), "distinct": len(set(keys)), "pages": pages,
+                "ms": (time.perf_counter() - t) * 1e3, "sorted": keys == sorted(keys)}
+
+    try:
+        t = time.perf_counter()
+        state = c.up()
+        startup_s = time.perf_counter() - t
+        roles = state["roles"]
+        master, cmgr, gw = roles["master"][0], roles["clustermgr"][0], roles["objectnode"][0]
+        s3 = S3(gw)
+
+        # per-partition raft groups elect their leaders first
+        t = time.perf_counter()
+        deadline = time.perf_counter() + 120
+        while s3.req("PUT", "/bkt/warmup", b"w")[0] != 200:
+            if time.perf_counter() > deadline:
+                raise AssertionError("phase s3: the first PUT never succeeded")
+            time.sleep(0.2)
+        election_s = time.perf_counter() - t
+
+        # -- large objects: 4 writers ---------------------------------------------
+        big = [rng.integers(0, 256, obj_size, dtype=np.uint8).tobytes() for _ in range(objects)]
+        md5 = [hashlib.md5(b).hexdigest() for b in big]
+        puts = timed_ops("put_large", objects, writers,
+                         lambda j: s3.req("PUT", f"/bkt/big/o{j:02d}", big[j]),
+                         nbytes=objects * obj_size)
+        gets = timed_ops("get_large", objects, writers,
+                         lambda j: s3.req("GET", f"/bkt/big/o{j:02d}"), nbytes=objects * obj_size)
+        cases["put_large"]["etag_md5"] = all(st == 200 and etag(h) == md5[j]
+                                             for j, (st, _, h) in enumerate(puts))
+        cases["get_large"]["equal"] = all(st == 200 and b == big[j] and etag(h) == md5[j]
+                                          for j, (st, b, h) in enumerate(gets))
+        del gets
+        spans = [(0, MIB), (obj_size - MIB, MIB), (obj_size // 2 - MIB // 2, MIB)]
+        rgot = timed_ops("get_range", 3 * objects, writers, lambda j: s3.req(
+            "GET", f"/bkt/big/o{j // 3:02d}",
+            headers={"range": f"bytes={spans[j % 3][0]}-{sum(spans[j % 3]) - 1}"}))
+        cases["get_range"]["equal"] = all(
+            st == 206 and b == big[j // 3][spans[j % 3][0]:sum(spans[j % 3])]
+            for j, (st, b, _) in enumerate(rgot))
+        del rgot
+
+        # -- multipart: 32 parts of 8 MiB from 4 threads -------------------------------
+        whole = rng.integers(0, 256, multipart, dtype=np.uint8).tobytes()
+        n_parts = -(-multipart // part)
+        st, body, _ = s3.req("POST", "/bkt/multi/whole.bin", query="uploads")
+        upload = xml_texts(body, "UploadId")[0]
+        part_etags = timed_ops("multipart_parts", n_parts, writers, lambda j: s3.req(
+            "PUT", "/bkt/multi/whole.bin", whole[j * part:(j + 1) * part],
+            query=f"partNumber={j + 1}&uploadId={upload}"), nbytes=multipart)
+        doc = "".join(f"<Part><PartNumber>{j + 1}</PartNumber><ETag>{h['etag']}</ETag></Part>"
+                      for j, (_, _, h) in enumerate(part_etags))
+        t = time.perf_counter()
+        st_c, body_c, _ = s3.req("POST", "/bkt/multi/whole.bin", query=f"uploadId={upload}",
+                                 body=f"<CompleteMultipartUpload>{doc}"
+                                      f"</CompleteMultipartUpload>".encode())
+        complete_s = time.perf_counter() - t
+        t = time.perf_counter()
+        st_g, got, h = s3.req("GET", "/bkt/multi/whole.bin")
+        get_s = time.perf_counter() - t
+        cases["multipart"] = {
+            "bytes": multipart, "parts": n_parts, "part": part,
+            "parts_ok": all(st == 200 for st, _, _ in part_etags),
+            "complete_s": complete_s, "complete_gib_s": multipart / complete_s / 2**30,
+            "get_s": get_s, "get_gib_s": multipart / get_s / 2**30,
+            "etag_md5_whole": st_c == 200 and etag(h) == hashlib.md5(whole).hexdigest()
+            and xml_texts(body_c, "ETag")[0].strip('"') == etag(h),
+            "equal": st_g == 200 and got == whole}
+        del whole, got, part_etags
+
+        # -- small objects: 8 threads x 256 of 4 KiB ----------------------------------
+        n_small = small_threads * small
+        bodies = [rng.integers(0, 256, small_size, dtype=np.uint8).tobytes()
+                  for _ in range(small_threads)]
+        key = lambda j: f"/bkt/small/o{j:05d}"  # noqa: E731
+        put_st = timed_ops("put_small", n_small, small_threads,
+                           lambda j: s3.req("PUT", key(j), bodies[j % small_threads])[0])
+        head = timed_ops("head_small", n_small, small_threads, lambda j: s3.req("HEAD", key(j)))
+        got = timed_ops("get_small", n_small, small_threads, lambda j: s3.req("GET", key(j)))
+        cases["put_small"]["all_200"] = all(st == 200 for st in put_st)
+        cases["head_small"]["sizes"] = all(st == 200 and h.get("content-length") == str(small_size)
+                                           for st, _, h in head)
+        cases["get_small"]["equal"] = all(st == 200 and b == bodies[j % small_threads]
+                                          for j, (st, b, _) in enumerate(got))
+        del head, got
+        cases["list_v2"] = list_v2(s3, "small/", None)
+        cases["list_v2_delimiter"] = list_v2(s3, "small/", "/")
+        deleted, t = 0, time.perf_counter()
+        for lo in range(0, n_small, page):
+            doc = "".join(f"<Object><Key>{key(j)[5:]}</Key></Object>"
+                          for j in range(lo, min(n_small, lo + page)))
+            st, body, _ = s3.req("POST", "/bkt", query="delete",
+                                 body=f"<Delete>{doc}</Delete>".encode())
+            deleted += body.count(b"<Deleted>") if st == 200 else 0
+        cases["delete_objects"] = {"keys": n_small, "deleted": deleted, "batch": page,
+                                   "seconds": time.perf_counter() - t}
+        cases["list_after_delete"] = list_v2(s3, "small/", None)
+
+        # -- refusals ---------------------------------------------------------------
+        refusals = {
+            "anonymous_put": s3.req("PUT", "/bkt/refused", b"x", cred=None)[0],
+            "stranger_put": s3.req("PUT", "/bkt/refused", b"x", cred=S3_STRANGER)[0],
+            "bad_signature": s3.req("PUT", "/bkt/refused", b"x", bad_signature=True)[0],
+            "refused_key_absent": s3.req("GET", "/bkt/refused")[0],
+        }
+
+        # -- cold tier: the bucket's own lifecycle rule ----------------------------
+        cold = [rng.integers(0, 256, obj_size, dtype=np.uint8).tobytes() for _ in range(tier)]
+        cold_keys = [f"cold/c{i}" for i in range(tier)]
+        for k, b in zip(cold_keys, cold):
+            if s3.req("PUT", f"/bkt/{k}", b)[0] != 200:
+                raise AssertionError(f"phase s3: PUT {k} refused")
+        rule = (b"<LifecycleConfiguration><Rule><ID>cold-after-a-day</ID><Filter><Prefix>cold/"
+                b"</Prefix></Filter><Status>Enabled</Status><Transition><Days>1</Days>"
+                b"<StorageClass>EC_COLD</StorageClass></Transition></Rule>"
+                b"</LifecycleConfiguration>")
+        lifecycle_put = s3.req("PUT", "/bkt", rule, query="lifecycle")[0]
+        view = rpc.call(master, "client_view", {"name": state["volume"]})[0]["volume"]
+        pool = rpc.NodePool()
+        acfg = AccessConfig(blob_size=blob_size, engine="cuda", device=dev)
+        os.environ["CUBEFS_TIERING"] = "1"
+        try:
+            fs = FileSystem(view, pool, blob_client=BlobClient(cmgr, pool, acfg))
+        finally:
+            os.environ.pop("CUBEFS_TIERING", None)
+        now = time.time()
+        for k in cold_keys:
+            fs.meta.set_attr(fs.resolve(f"/{k}"), mtime=now - 2 * 86400)
+        lc = LcNode(fs, engine=fs.tiering)
+        rules = lc.load_rules_from_bucket()
+        _build.reset_launches()
+        t = time.perf_counter()
+        rep = lc.scan_once()
+        migrate_s = time.perf_counter() - t
+        inodes = [fs.meta.inode_get(fs.resolve(f"/{k}")) for k in cold_keys]
+        locs = [json.loads(i["xattr"]["cold.location"]) if i["xattr"].get("cold.location")
+                else None for i in inodes]
+        cases["migrate"] = {"objects": tier, "bytes": tier * obj_size, "seconds": migrate_s,
+                            "rules": rules, "transitioned": rep.transitioned,
+                            "errors": [list(e) for e in rep.errors],
+                            "a_launches": a_launches(), "engine": acfg.engine,
+                            "cold_only": all(not i["extents"] and loc is not None
+                                             for i, loc in zip(inodes, locs))}
+        mode = cm.CodeMode(locs[0]["codemode"])
+        tac = cm.tactic(mode)
+        vols = tiered_volumes(cmgr, locs)
+        parity_equal = tiered_parity_equal(vols, locs, tac.n, tac.m)
+
+        store = authnode.UserStore()
+        for u in users:
+            store.users[u["access_key"]] = {"user_id": u["access_key"], "sk": u["secret_key"],
+                                            "volumes": dict(u.get("grants", {}))}
+        node = ObjectNode({"bkt": fs}, authenticator=s3auth.S3V4Authenticator(
+            store, {"bkt": state["volume"]})).start()
+        local = S3(node.addr)
+
+        def cold_gets(label: str) -> None:
+            a0, ms, ok = a_launches(), [], []
+            for k, want in zip(cold_keys, cold):
+                t = time.perf_counter()
+                st, b, _ = local.req("GET", f"/bkt/{k}")
+                ms.append((time.perf_counter() - t) * 1e3)
+                ok.append(st == 200 and b == want)
+            cases[label] = {"objects": tier, "ms_runs": ms, "ms": statistics.median(ms),
+                            "a_launches": a_launches() - a0, "equal": all(ok)}
+        cold_gets("cold_get")
+
+        # -- one blobnode process stopped: degraded cold GETs ----------------------
+        stopped, blob_victim_exit, lost_data_blobs = stop_a_blobnode(
+            c, roles["blobnode"], vols, locs, tac.n, tac.m)
+        cold_gets("degraded_cold_get")
+        cases["degraded_cold_get"].update({"stopped": stopped,
+                                           "blobs_lost_a_data_unit": lost_data_blobs})
+
+        # -- the role's answer for a tiered object: the shared limit -------------------
+        st, b, h = s3.req("GET", f"/bkt/{cold_keys[0]}")
+        role_tiered = {"status": st, "bytes": len(b), "zeros": b == bytes(obj_size),
+                       "content_length": h.get("content-length")}
+        launches = {"gf_apply": a_launches()}
+    finally:
+        if node is not None:
+            node.stop()
+        if fs is not None:
+            for cl in (*fs.meta._packet_clients.values(), *fs.data._packet_clients.values()):
+                cl.close()
+        codes = c.down()
+        shutil.rmtree(workdir, ignore_errors=True)
+        qos.DEFAULT._tracker, qos.DEFAULT._levels, qos.DEFAULT._last_refresh = gate
+        for k, v in saved_env.items():
+            if v is not None:
+                os.environ[k] = v
+
+    k = cases
+    checks = {
+        "put_large_etag_md5": k["put_large"]["etag_md5"],
+        "get_large.equal": k["get_large"]["equal"],
+        "get_range.equal": k["get_range"]["equal"],
+        "multipart_parts_ok": k["multipart"]["parts_ok"],
+        "multipart_etag_md5_whole": k["multipart"]["etag_md5_whole"],
+        "multipart.equal": k["multipart"]["equal"],
+        "put_small_all_200": k["put_small"]["all_200"],
+        "head_small_sizes": k["head_small"]["sizes"],
+        "get_small.equal": k["get_small"]["equal"],
+        "list_v2_all": k["list_v2"]["keys"] == k["list_v2"]["distinct"] == n_small
+        and k["list_v2"]["pages"] == -(-n_small // page) and k["list_v2"]["sorted"],
+        "list_v2_delimiter_all": k["list_v2_delimiter"]["keys"] == n_small
+        and k["list_v2_delimiter"]["pages"] == -(-n_small // page),
+        "delete_objects_all": k["delete_objects"]["deleted"] == n_small,
+        "list_after_delete_empty": k["list_after_delete"]["keys"] == 0,
+        "refusals_403": all(refusals[r] == 403 for r in ("anonymous_put", "stranger_put",
+                                                          "bad_signature"))
+        and refusals["refused_key_absent"] == 404,
+        "lifecycle_put_200": lifecycle_put == 200,
+        "lcnode_adopted_the_rule": k["migrate"]["rules"] == 1,
+        "tier_codemode_ec12p4": mode == cm.CodeMode.EC12P4,
+        "migrated_all": k["migrate"]["transitioned"] == tier and not k["migrate"]["errors"],
+        "cold_location_only": k["migrate"]["cold_only"],
+        "tier_launched_a_per_object": k["migrate"]["a_launches"] >= tier,
+        "parity_equals_plain": bool(parity_equal) and all(parity_equal),
+        "cold_get.equal": k["cold_get"]["equal"],
+        "cold_get_launched_no_a": k["cold_get"]["a_launches"] == 0,
+        "degraded_cold_get.equal": k["degraded_cold_get"]["equal"],
+        "degraded_launched_a_per_lost_blob": lost_data_blobs > 0
+        and k["degraded_cold_get"]["a_launches"] >= lost_data_blobs,
+        "role_tiered_get_is_the_shared_limit": role_tiered["status"] == 200
+        and role_tiered["zeros"],
+        "every_role_exited_0": blob_victim_exit == 0 and all(rc == 0 for rc in codes.values()),
+    }
+    return {"phase": "s3", "card": card, "seconds": time.perf_counter() - t_phase,
+            "startup_s": startup_s, "election_s": election_s,
+            "cluster": {"roles": {r: len(a) for r, a in roles.items()}, "replicas": 3,
+                        "mp_count": 3, "dp_count": 4, "objects": objects, "obj_size": obj_size,
+                        "writers": writers, "multipart": multipart, "part": part,
+                        "small_threads": small_threads, "small": n_small,
+                        "small_size": small_size, "page": page, "tiered": tier,
+                        "blob_size": blob_size, "codemode": mode.name,
+                        "blob_shard": -(-blob_size // tac.n)},
+            "cases": cases, "refusals": refusals, "role_tiered_get": role_tiered,
+            "parity_blobs": len(parity_equal), "exit_codes": {**codes},
+            "launches": launches, "checks": checks}
 
 
 def main() -> int:
@@ -3212,7 +3682,19 @@ def main() -> int:
     if failed:
         raise AssertionError(f"fs checks failed: {failed}")
 
-    # -- 18. the sharded step: 8 ranks over torch.distributed ----------------
+    # -- 18. the S3 gateway: the objectnode role over the same planes --------
+    # The roles are processes; the cold tier's client and the gateway that
+    # serves the cold GETs run here, and so does the blob codec: A encodes
+    # each tier PUT and rebuilds each degraded cold GET in this process, on
+    # engine cuda. Counts from 0: A only.
+    torch.cuda.empty_cache()
+    s3p = s3_phase(dev, card)
+    emit(s3p)
+    failed = [k for k, v in s3p["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"s3 checks failed: {failed}")
+
+    # -- 19. the sharded step: 8 ranks over torch.distributed ----------------
     # Built above, in this process: the ranks find the libraries and run
     # no nvcc. Every rank runs A and B on its own block; the collectives
     # go through gloo, which stages CUDA buffers through host memory and
@@ -3235,7 +3717,7 @@ def main() -> int:
     if sh_bad:
         raise AssertionError(f"sharded step checks failed: {sh_bad}")
 
-    # -- 19. the kernels' record --------------------------------------------
+    # -- 20. the kernels' record --------------------------------------------
     gf_main, crc_main = gf_results[0], crc_results[0]
     bm_main, probe_main = (next(x for x in bm_results
                                 if (x["case"], x["extract"], x["probe"], x["grid"]) == key)
@@ -3251,6 +3733,7 @@ def main() -> int:
          "integrity_launches": integrity["launches"]["gf_apply"],
          "integrity_scrub_launches": integrity["scrub_launches"],
          "fs_launches": fsp["launches"]["gf_apply"],
+         "s3_launches": s3p["launches"]["gf_apply"],
          "equal": gf_main["equal"],
          "max_abs_err": gf_main["max_abs_err"], "ms": gf_main["ms"],
          "device_ms": gf_main["device_ms"], "plain_ms": gf_main["plain_ms"],

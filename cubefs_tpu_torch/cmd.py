@@ -5,13 +5,14 @@ on the ``role`` key of a JSON config,
 
     python -m cubefs_tpu_torch.cmd -c config.json
 
-for the file-system plane's roles, the blob plane's and the codec
-sidecar. Each role builds its service object(s), serves them with the RPC
-layer (``utils/rpc.py``), registers with its control plane, and blocks.
+for the file-system plane's roles (with its S3 gateway), the blob
+plane's and the codec sidecar. Each role builds its service object(s),
+serves them with the RPC layer (``utils/rpc.py``), registers with its
+control plane, and blocks.
 
 Config keys (JSON), with the reference's names and defaults:
-  role:         master | metanode | datanode | clustermgr | blobnode |
-                proxy | access | scheduler | codec
+  role:         master | metanode | datanode | objectnode | clustermgr |
+                blobnode | proxy | access | scheduler | codec
   listen_host / listen_port: bind address (port 0: an ephemeral port)
   packet_port / read_port: a metanode's or datanode's binary packet
                 plane and native read plane (0: ephemeral), beside HTTP
@@ -25,6 +26,12 @@ Config keys (JSON), with the reference's names and defaults:
                 numpy-xor, cpp-xor or auto; ``access`` defaults to auto,
                 ``codec`` to ``CUBEFS_TPU_EC_ENGINE`` or cuda
   blob_size, az, rack, node_id, allow_colocated_units: as the reference's
+  vols:         {bucket: vol_name} (objectnode), each served by a
+                ``FileSystem`` over the master's ``client_view``
+  users:        objectnode identities, [{access_key, secret_key,
+                user_id, grants: {vol: perm}}] (SigV4/V2 required); or
+  users_from_master: true, the master's replicated user table
+  audit_webhook_url / audit_queue_dir: the objectnode's audit sinks
   me / peers:   a clustermgr raft group (``peers`` lists every member,
                 ``me`` among them; ports must be static, listen_port != 0)
   mq_members:   access produces its repair/delete events into the
@@ -36,13 +43,15 @@ Config keys (JSON), with the reference's names and defaults:
   device:       the port's own key: the CUDA device of every role that
                 runs the codec (default: the current one, and a role
                 raises without a card), or "cpu" to run the kernels'
-                plain versions
+                plain versions; the master, metanode, datanode and
+                objectnode run no kernel and take it without using it
 
 A metanode and a datanode register with the master and heartbeat to it
-every 3 s. The objectnode, fuseclient, fsgateway, console, flashnode and
+every 3 s. The fuseclient, fsgateway, console, flashnode and
 flashgroupmanager roles wait for later slices (ROADMAP.md §1 item 4).
 
-Each role prints ``[<role>] listening on host:port`` once it serves. On
+Each role prints ``[<role>] listening on host:port`` once it serves, the
+objectnode the reference's ``[objectnode] S3 on host:port``. On
 SIGTERM or SIGINT it stops what it started beside its service
 (heartbeats, packet planes), the service (a master's quota sweeper,
 ``stop``, then ``fsm_stop``, which stops a clustermgr's or master's raft
@@ -171,6 +180,49 @@ def run_role(cfg: dict):
                        qos=cfg.get("qos"),  # {"read_bps":..., "write_bps":...}
                        disks=cfg.get("disks"))  # multi-disk: list of dirs
         return _fs_node("data", svc, cfg)[0], svc
+
+    if role == "objectnode":
+        from .fs.client import FileSystem
+        from .fs.objectnode import ObjectNode
+
+        master = rpc.Client(cfg["master_addr"])
+        vols = {}
+        for bucket, vol_name in cfg.get("vols", {}).items():
+            view = master.call("client_view", {"name": vol_name})[0]["volume"]
+            vols[bucket] = FileSystem(view, pool, master_addr=cfg["master_addr"])
+        auth = None
+        if cfg.get("users_from_master"):
+            # the master's replicated user table is the identity source
+            from .fs.s3auth import MasterUserStore, S3V4Authenticator
+
+            auth = S3V4Authenticator(MasterUserStore(master), dict(cfg.get("vols", {})))
+        elif cfg.get("users"):  # [{access_key, secret_key, grants:{vol:perm}}]
+            from .fs.authnode import UserStore
+            from .fs.s3auth import S3V4Authenticator
+
+            store = UserStore()
+            for u in cfg["users"]:
+                store.users[u["access_key"]] = {
+                    "user_id": u.get("user_id", u["access_key"]),
+                    "sk": u["secret_key"],
+                    "volumes": dict(u.get("grants", {})),
+                }
+            auth = S3V4Authenticator(store, dict(cfg.get("vols", {})))
+        sinks = []
+        if cfg.get("audit_webhook_url"):
+            from .fs.s3audit import WebhookAuditSink
+
+            sinks.append(WebhookAuditSink(cfg["audit_webhook_url"]))
+        if cfg.get("audit_queue_dir"):
+            from .blob.mq import MessageQueue
+            from .fs.s3audit import QueueAuditSink
+
+            sinks.append(QueueAuditSink(MessageQueue(cfg["audit_queue_dir"], topic="s3audit")))
+        node = ObjectNode(vols, host=cfg.get("listen_host", "127.0.0.1"),
+                          port=int(cfg.get("listen_port", 0)),
+                          authenticator=auth, audit_sinks=sinks).start()
+        print(f"[objectnode] S3 on {node.addr}", flush=True)
+        return node, node
 
     if role == "clustermgr":
         from .blob.clustermgr import ClusterMgr

@@ -11,7 +11,8 @@ Topology JSON (all keys optional), the reference's keys:
   {"metanodes": 3, "datanodes": 4, "replicas": 3,
    "volume": {"name": "vol1", "mp_count": 3, "dp_count": 4},
    "blobnodes": 6, "disks_per_blobnode": 9, "blob_azs": 3,
-   "access": true, "blob_size": 8388608, "codec": false}
+   "access": true, "blob_size": 8388608, "codec": false,
+   "objectnode": false, "bucket": "bkt", "users": [...]}
 
 and the port's own:
   "proxy": false       a proxy role, whose address access is given
@@ -28,9 +29,12 @@ it always, with 3 and 4 by default, and so does the port with
 ``"metanodes": 3, "datanodes": 4``. The master's address is
 ``roles.master[0]``. blob_azs spreads blobnodes across failure domains
 round-robin: an int yields AZ names az0..azN-1, a list supplies the
-names. The objectnode, fsgateway and console are not ported: a topology
-that asks for any of them raises ``NotImplementedError`` (ROADMAP.md §1
-item 4).
+names. The objectnode (the S3 gateway) serves the volume as bucket
+``bucket`` with the ``users`` of its role config, and needs the
+file-system plane; it prints the reference's ``S3 on host:port``, which
+the launcher takes as its address line. The fsgateway and console are not
+ported: a topology that asks for either raises ``NotImplementedError``
+(ROADMAP.md §1 item 4).
 """
 
 from __future__ import annotations
@@ -44,7 +48,9 @@ import sys
 import threading
 import time
 
-UNPORTED = ("objectnode", "fsgateway", "console")
+UNPORTED = ("fsgateway", "console")
+# the lines a role prints once it serves: every role's, and the objectnode's
+READY = ("listening on", "S3 on")
 # the directory that holds the package: spawned roles import it from there
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -75,7 +81,7 @@ class Proc:
         deadline = time.time() + timeout
         while time.time() < deadline:
             for line in self._log().splitlines():
-                if "listening on" in line:
+                if any(mark in line for mark in READY):
                     self.addr = line.strip().rsplit(" ", 1)[-1]
                     return self.addr
             if self.p.poll() is not None:
@@ -90,6 +96,9 @@ class Cluster:
         if asked:
             raise NotImplementedError(
                 f"roles {asked} are not ported yet (ROADMAP.md §1 item 4)")
+        if topo.get("objectnode") and not (topo.get("metanodes") or topo.get("datanodes")):
+            raise ValueError("the objectnode serves a volume of the file-system plane: "
+                             "give metanodes and datanodes")
         self.topo = topo
         self.workdir = workdir
         self.timeout = timeout
@@ -187,6 +196,11 @@ class Cluster:
             if t.get("scheduler"):
                 self._spawn("scheduler", {
                     "data_dir": os.path.join(self.workdir, "scheduler")})
+        if t.get("objectnode"):
+            self._spawn("objectnode", {
+                "master_addr": self.state["roles"]["master"][0],
+                "vols": {t.get("bucket", "bkt"): self.state["volume"]},
+                "users": t.get("users", [])})
         if t.get("codec"):
             self._spawn("codec", dict(engine))
         with open(os.path.join(self.workdir, "cluster.json"), "w") as f:

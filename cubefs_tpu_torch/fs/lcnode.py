@@ -37,10 +37,6 @@ from . import metanode as mn
 from .client import FileSystem, FsError
 from .tiering import TieringEngine
 
-# the volume-root xattr the S3 gateway stores a bucket's
-# LifecycleConfiguration in (the reference's fs/s3policy.XA_LIFECYCLE)
-XA_LIFECYCLE = "s3.lifecycle"
-
 log = logging.getLogger("cubefs.lcnode")
 
 
@@ -99,8 +95,10 @@ class LcNode:
         the executor reads the volume's own config. Returns rule count."""
         import json
 
+        from . import s3policy
+
         try:
-            raw = self.fs.getxattr("/", XA_LIFECYCLE)
+            raw = self.fs.getxattr("/", s3policy.XA_LIFECYCLE)
         except FsError:
             raw = None
         if not raw:

@@ -35,8 +35,9 @@ import pytest
 import torch
 
 from cubefs_tpu_torch.ops import crc32_kernel
-from cubefs_tpu_torch.utils import metrics, qos
-from test_torch_raft import port_copy, scenarios
+from cubefs_tpu_torch.parallel import raft
+from cubefs_tpu_torch.utils import metrics, qos, rpc
+from test_torch_raft import QUIET_ELECTION, port_copy, scenarios
 
 
 class _Still:
@@ -103,9 +104,66 @@ def run_in(mod, name, request):
     fn(**{a: value(a) for a in inspect.signature(fn).parameters})
 
 
+# Scenarios that check a raft group under its first leader: the master
+# table replicated and a follower's redirect; group commit's entries and
+# fsyncs over one leader's rounds. A follower starved of heartbeats past
+# the default 0.15-0.30 s (a loaded host) elects a new leader mid-scenario,
+# which is not what they check. Each node takes the long timeout once it
+# knows a leader, so the first election (and a split vote's retry) runs on
+# the default.
+KEEP_LEADER = {("test_fs_e2e", "test_master_raft_replication"),
+               ("test_meta_batch", "test_concurrent_creates_batch_entries_and_fsyncs")}
+
+
+def keep_first_leader(monkeypatch) -> None:
+    notify = raft.RaftNode._notify_role
+
+    def quiet_once_led(self):
+        notify(self)
+        if self.leader is not None and self.ELECTION_MIN != QUIET_ELECTION[0]:
+            self.ELECTION_MIN, self.ELECTION_MAX = QUIET_ELECTION
+            self._election_due = self._rand_timeout()
+
+    monkeypatch.setattr(raft.RaftNode, "_notify_role", quiet_once_led)
+
+
 @pytest.mark.parametrize("module,name", CASES)
-def test_reference_fs_scenario_on_the_port(module, name, request):
+def test_reference_fs_scenario_on_the_port(module, name, request, monkeypatch):
+    if (module, name) in KEEP_LEADER:
+        keep_first_leader(monkeypatch)
     run_in(MODULES[module], name, request)
+
+
+def test_keep_first_leader_pins_the_timeout_once_a_leader_is_known(monkeypatch):
+    """The harness of ``KEEP_LEADER``: a 3-node group elects on the default
+    timeout; once it has a leader every member holds the long timeout, and
+    a member that hears no heartbeat for a second (its leader stopped)
+    starts no election."""
+    keep_first_leader(monkeypatch)
+    pool = rpc.NodePool()
+    addrs = ["k0", "k1", "k2"]
+    nodes = {a: raft.RaftNode("k", a, addrs, lambda e: None, pool) for a in addrs}
+    for a, n in nodes.items():
+        host = types.SimpleNamespace(extra_routes={})
+        raft.register_routes(host.extra_routes, n)
+        pool.bind(a, host)
+    assert all(n.ELECTION_MAX == raft.RaftNode.ELECTION_MAX for n in nodes.values())
+    t0 = time.monotonic()
+    for n in nodes.values():
+        n.start()
+    try:
+        lead = wait_for(lambda: next((n for n in nodes.values() if n.status()["role"] == "leader"),
+                                     None), 5.0, "a leader")
+        assert time.monotonic() - t0 < QUIET_ELECTION[0]  # elected on the default
+        wait_for(lambda: all(n.ELECTION_MIN == QUIET_ELECTION[0] for n in nodes.values()),
+                 5.0, "every member pinned")
+        term = lead.status()["term"]
+        lead.stop()
+        time.sleep(1.0)
+        assert all(n.status()["term"] == term for n in nodes.values() if n is not lead)
+    finally:
+        for n in nodes.values():
+            n.stop()
 
 
 # ---------------- the two packages, side by side ----------------

@@ -50,7 +50,8 @@ def port_copy(name: str, **names) -> types.ModuleType:
     one: ``Cluster`` for ``from test_blob_e2e import Cluster`` (always
     dropped), a port twin for a helper of another reference test. An
     import of a port module that does not exist yet is dropped too (the
-    scenarios run here do not use it)."""
+    scenarios run here do not use it). ``name`` may name a subdirectory of
+    ``tests/``: ``conformance/test_s3_conformance``."""
     path = os.path.join(TESTS, f"{name}.py")
     with open(path) as f:
         src = re.sub(r"\bcubefs_tpu\b", "cubefs_tpu_torch", f.read())
@@ -67,7 +68,7 @@ def port_copy(name: str, **names) -> types.ModuleType:
             lines[node.lineno - 1] = " " * node.col_offset + "pass"
             for i in range(node.lineno, node.end_lineno):
                 lines[i] = ""  # keep the line numbers of the source
-    mod = types.ModuleType(f"{name}_on_the_port")
+    mod = types.ModuleType(f"{os.path.basename(name)}_on_the_port")
     mod.__file__ = path
     mod.__dict__.update(names)
     exec(compile("\n".join(lines) + "\n", path, "exec"), mod.__dict__)

@@ -13,6 +13,7 @@ blobnode processes. Two clusters of processes are spawned, each with a
 timeout.
 """
 
+import hashlib
 import http.client
 import json
 import os
@@ -27,10 +28,12 @@ from cubefs_tpu_torch import cmd
 from cubefs_tpu_torch.blob import access, blobnode, clustermgr, mq, proxy, scheduler, worker
 from cubefs_tpu_torch.codec import codemode as cmode
 from cubefs_tpu_torch.deploy import cluster as deploy
+from cubefs_tpu_torch.fs import s3auth
 from cubefs_tpu_torch.utils import auditlog, qos, rpc
 from cubefs_tpu_torch.utils import trace as tracelib
 from cubefs_tpu_torch.utils.retry import MONOTONIC, FakeClock
 from test_torch_raft import free_ports
+from test_torch_s3_mixed import OWNER, STRANGER
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = types.SimpleNamespace(auditlog=auditlog, trace=tracelib, rpc=rpc, FakeClock=FakeClock,
@@ -732,16 +735,23 @@ def test_fs_role_route_set_equals_the_reference(ref, traces, still_qos, tmp_path
         assert cmd.shutdown(msrv, master) == 0
 
 
+S3_USERS = [{"access_key": OWNER["access_key"], "secret_key": OWNER["secret_key"],
+             "grants": {"fsvol": "rw"}},
+            {"access_key": STRANGER["access_key"], "secret_key": STRANGER["secret_key"]}]
+
+
 @pytest.fixture(scope="module")
 def launched_fs(tmp_path_factory):
     """The launcher's file-system plane with its cold tier's blob plane on
     the CPU: a master, 3 metanodes, 3 datanodes (replicas 3) and a volume
     of 2 meta and 2 data partitions, a clustermgr and 4 blobnodes x 3
-    disks, each a process of its own."""
+    disks, and the objectnode serving the volume as bucket ``bkt`` to an
+    owner and a stranger, each a process of its own."""
     wd = tmp_path_factory.mktemp("launched_fs")
     c = deploy.Cluster({"metanodes": 3, "datanodes": 3, "replicas": 3,
                         "volume": {"name": "fsvol", "mp_count": 2, "dp_count": 2},
                         "blobnodes": 4, "disks_per_blobnode": 3, "access": False,
+                        "objectnode": True, "bucket": "bkt", "users": S3_USERS,
                         "device": "cpu"}, str(wd), timeout=120.0)
     codes = {}
     try:
@@ -763,7 +773,8 @@ def test_launched_fs_plane_round_trips_tiers_and_exits_0(launched_fs, still_qos,
     with open(wd / "cluster.json") as f:
         assert json.load(f) == state
     assert {r: len(a) for r, a in state["roles"].items()} == {
-        "master": 1, "metanode": 3, "datanode": 3, "clustermgr": 1, "blobnode": 4}
+        "master": 1, "metanode": 3, "datanode": 3, "clustermgr": 1, "blobnode": 4,
+        "objectnode": 1}
     assert state["volume"] == "fsvol"
     view = rpc.call(state["roles"]["master"][0], "client_view", {"name": "fsvol"})[0]["volume"]
     assert len(view["mps"]) == 2 and len(view["dps"]) == 2
@@ -799,20 +810,114 @@ def test_launched_fs_plane_round_trips_tiers_and_exits_0(launched_fs, still_qos,
             cl.close()
 
 
+def test_launched_objectnode_serves_signed_requests_only(launched_fs):
+    """The launched ``objectnode`` role: requests SigV4-signed by either
+    package's signer as the owner succeed (PUT, GET, HEAD, a listing);
+    anonymous and stranger requests and a signature under the wrong
+    secret get 403."""
+    from test_torch_s3_mixed import call
+
+    from cubefs_tpu.fs import s3auth as ref_s3auth
+
+    _, state, _, _ = launched_fs
+    url = f"http://{state['roles']['objectnode'][0]}/bkt"
+    body = payload(np.random.default_rng(33), 200_003)
+    deadline = time.monotonic() + 60
+    while call("PUT", f"{url}/s3/obj.bin", body)[0] != 200:  # per-partition elections
+        assert time.monotonic() < deadline
+        time.sleep(0.2)
+    for signer in (s3auth, ref_s3auth):
+        st, got, h = call("GET", f"{url}/s3/obj.bin", signer=signer)
+        assert (st, got) == (200, body) and h["ETag"] == f'"{hashlib.md5(body).hexdigest()}"'
+        assert call("HEAD", f"{url}/s3/obj.bin", signer=signer)[2]["Content-Length"] == "200003"
+        st, listing, _ = call("GET", f"{url}?list-type=2&prefix=s3/", signer=signer)
+        assert st == 200 and b"<Key>s3/obj.bin</Key>" in listing
+    wrong = dict(OWNER, secret_key="not-the-secret")
+    for cred in (None, STRANGER, wrong):
+        assert call("PUT", f"{url}/s3/refused", b"x", cred=cred)[0] == 403
+        assert call("GET", f"{url}/s3/obj.bin", cred=cred)[0] == 403
+    assert call("GET", f"{url}/s3/refused")[0] == 404
+
+
+def test_tiered_object_through_either_objectnode_role(launched_fs, still_qos, monkeypatch):
+    """The limit shared with the reference: the objectnode role's
+    ``FileSystem`` has no blob client, so a GET of a tiered object
+    answers 200 and the object's size in zero bytes. The port's launched
+    role and the reference's (``python -m cubefs_tpu.cmd``, on the same
+    master) answer the same status and bytes; a hot object reads back in
+    both."""
+    from cubefs_tpu.deploy import cluster as ref_deploy
+    from cubefs_tpu_torch.blob.sdk import BlobClient
+    from cubefs_tpu_torch.fs.client import FileSystem
+    from cubefs_tpu_torch.fs.lcnode import LcNode, LifecycleRule
+    from test_torch_s3_mixed import call
+
+    _, state, wd, _ = launched_fs
+    master = state["roles"]["master"][0]
+    view = rpc.call(master, "client_view", {"name": "fsvol"})[0]["volume"]
+    pool = rpc.NodePool()
+    monkeypatch.setenv("CUBEFS_TIERING", "1")
+    fs = FileSystem(view, pool, blob_client=BlobClient(
+        state["roles"]["clustermgr"][0], pool, access.AccessConfig(blob_size=BLOB, device="cpu")))
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")  # the reference's role inherits it
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    ref_role = None
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                fs.mkdir("/tiered")
+                break
+            except Exception:
+                assert time.monotonic() < deadline
+                time.sleep(0.1)
+        hot, cold = (payload(np.random.default_rng(35), n) for n in (70_001, 250_007))
+        fs.write_file("/tiered/hot.bin", hot)
+        ino = fs.write_file("/tiered/cold.bin", cold)
+        fs.meta.set_attr(ino, mtime=time.time() - 7200)
+        lc = LcNode(fs, engine=fs.tiering)
+        lc.set_rules([LifecycleRule("tier", prefix="/tiered/cold", transition_after_s=3600)])
+        assert lc.scan_once().transitioned == 1
+        assert fs.read_file("/tiered/cold.bin") == cold  # this client has the blob plane
+        ref_role = ref_deploy.Proc("objectnode", {
+            "role": "objectnode", "name": "ref-objectnode", "master_addr": master,
+            "vols": {"bkt": "fsvol"}, "users": S3_USERS}, str(wd))
+        answers = {}
+        for name, addr in (("port", state["roles"]["objectnode"][0]),
+                           ("ref", ref_role.wait_addr(timeout=120.0))):
+            answers[name] = [call("GET", f"http://{addr}/bkt/tiered/{k}")[:2]
+                             for k in ("cold.bin", "hot.bin")]
+        assert answers["port"] == answers["ref"] == [(200, bytes(len(cold))), (200, hot)]
+    finally:
+        if ref_role is not None:
+            ref_role.p.terminate()
+            try:
+                ref_role.p.wait(30)
+            except subprocess.TimeoutExpired:
+                ref_role.p.kill()
+                ref_role.p.wait(30)
+        for cl in (*fs.meta._packet_clients.values(), *fs.data._packet_clients.values()):
+            cl.close()
+
+
 def test_launched_fs_roles_exit_0_on_sigterm(launched_fs):
     """Every role of the launched planes stops on SIGTERM with exit 0."""
     c, _, _, codes = launched_fs
     codes.update(c.down())
-    assert len(codes) == 12 and all(rc == 0 for rc in codes.values()), codes
+    assert len(codes) == 13 and all(rc == 0 for rc in codes.values()), codes
 
 
 def test_launcher_refuses_file_system_roles(tmp_path):
-    """The roles of the file-system plane still to port (objectnode,
-    fsgateway, console) are refused before anything starts."""
-    for topo in ({"objectnode": True}, {"fsgateway": True, "metanodes": 3},
+    """The roles of the file-system plane still to port (fsgateway,
+    console) are refused before anything starts, and so is an objectnode
+    with no file-system plane to serve."""
+    for topo in ({"fsgateway": True}, {"fsgateway": True, "metanodes": 3},
                  {"console": True, "datanodes": 1, "blobnodes": 1}):
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 4"):
             deploy.Cluster(topo, str(tmp_path))
+    with pytest.raises(ValueError, match="file-system plane"):
+        deploy.Cluster({"objectnode": True, "blobnodes": 4}, str(tmp_path))
     assert not os.listdir(tmp_path)
 
 

@@ -627,8 +627,8 @@ def test_cmd_serves_the_codec_role_and_stops_on_sigterm(tmp_path):
 
 
 def test_cmd_refuses_other_roles_and_engines():
-    with pytest.raises(SystemExit, match="unknown role 'objectnode'"):
-        cmd.run_role({"role": "objectnode"})  # not ported yet (ROADMAP.md §1 item 4)
+    with pytest.raises(SystemExit, match="unknown role 'fsgateway'"):
+        cmd.run_role({"role": "fsgateway"})  # not ported yet (ROADMAP.md §1 item 4)
     with pytest.raises(KeyError, match="unknown ec engine 'tpu'"):
         cmd.run_role({"role": "codec", "ec_engine": "tpu", "device": "cpu"})
 

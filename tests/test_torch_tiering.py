@@ -263,8 +263,11 @@ def test_native_meta_reads_see_the_tiering_applies(tmp_path):
             ops = sum(m._native_lib.ms_op_count(m._native_h) for m in c.metas)
             got = fs.meta.inode_get(ino)
             assert sum(m._native_lib.ms_op_count(m._native_h) for m in c.metas) > ops
-            mp = next(p for m in c.metas for p in m.partitions.values()
-                      if p.start <= ino < p.end and ino in p.inodes)
+            # the leader's copy: the read is served by the leader's plane,
+            # and a follower may not have applied the last entry yet
+            mp = next(p for m in c.metas for pid, p in m.partitions.items()
+                      if p.start <= ino < p.end and ino in p.inodes
+                      and (pid not in m.rafts or m.rafts[pid].status()["role"] == "leader"))
             return got, json.loads(json.dumps(mp.inodes[ino]))
 
         assert lc.scan_once().transitioned == 1
