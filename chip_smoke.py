@@ -86,8 +86,18 @@ HEAD and GET from 8 threads, listed in pages of 1,000 and batch-deleted,
 three refusals, and 4 objects tiered by the bucket's own lifecycle rule
 (kernel A encodes each tier PUT in this process), their parity held
 against the plain version, read cold through a gateway in this process,
-healthy and with a blobnode process stopped (A rebuilds). Each phase
-prints one JSON line; any failure, in any rank, raises.
+healthy and with a blobnode process stopped (A rebuilds). Then the
+file-system plane's three doors (phase ``fs_doors``): phase ``fs``'s
+planes with a flash group manager and two flash groups of 2 flashnodes,
+one group per AZ, each a process; 4 tiered files held across a live
+metapartition split raced by 4 threads of creates, then a merge and a
+balance sweep (every replica's digest equal, the tiered files read cold
+through kernel A with a blobnode process stopped); the AZ-local flash
+read tier with its hotness gate, eviction, a flashnode killed mid-read
+and an overwrite invalidating every AZ's copy; and geo-replication of
+16,384 inode records between two regions in this process, a snapshot
+bootstrap over the packet mux and a fenced failover and failback. Each
+phase prints one JSON line; any failure, in any rank, raises.
 
 The last lines are the kernels' record, the card's name and power limit
 as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -175,6 +185,17 @@ S3_MULTIPART, S3_PART = 256 * MIB, 8 * MIB
 S3_SMALL_THREADS, S3_SMALL, S3_SMALL_SIZE = 8, 256, 4096
 S3_PAGE = 1000
 S3_TIER = 4
+# phase fs_doors: phase fs's cluster with a flash group manager and two flash
+# groups (az-a, az-b) of 2 flashnodes at the role's default of 256 MiB.
+# Case split: 16 files of 64 MiB from 4 writers, 4 of them tiered, 4 threads
+# of 4 KiB creates (at most 256 each) racing an operator split. Case flash:
+# working sets of 3 files (192 MiB, within half the az-a group's 512 MiB)
+# and 8 files (512 MiB, twice that; the hotness gate tracks 4,096 blocks,
+# 512 MiB, so a larger set is never admitted). Case geo: 16,384 records.
+DOORS_FILES, DOORS_FILE, DOORS_WRITERS, DOORS_TIER = 16, 64 * MIB, 4, 4
+DOORS_RACERS, DOORS_RACE_FILES, DOORS_RACE_SIZE = 4, 256, 4096
+FLASH_SMALL_FILES, FLASH_BIG_FILES = 3, 8
+GEO_RECORDS = 16384
 S3_OWNER = {"access_key": "AKIDSMOKEOWNER000001", "secret_key": "smoke-owner-secret-key"}
 S3_STRANGER = {"access_key": "AKIDSMOKESTRANGER001", "secret_key": "smoke-stranger-secret"}
 # the C and D instantiations the kernels' record reports: (case, extract, probe, grid)
@@ -923,8 +944,12 @@ def roles_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = ROLES_PUTS
     """Phase ``roles``: the blob plane as its users start it, every role a
     process of its own (``deploy.Cluster``, ``python -m
     cubefs_tpu_torch.cmd``), driven only over HTTP: a clustermgr, 6
-    blobnodes x 3 disks, a proxy, access (``ec_engine`` auto, ``blob_size``
-    8 MiB, its proxy) and a scheduler, all with audit logs.
+    blobnodes x 3 disks, a proxy, access (``ec_engine`` cuda, ``blob_size``
+    8 MiB, its proxy) and a scheduler, all with audit logs. (Under
+    ``auto`` the access role routes each decode by the crossover table
+    phase ``engines`` measured, which may put an 8 MiB decode on the host
+    leg, and then the degraded reads launch no A; phase ``engines`` holds
+    ``auto`` itself.)
 
     ``n_puts`` PUTs of ``put`` bytes (EC12P4 by policy), each read back;
     the parity of two blobs, fetched from the blobnodes, against
@@ -974,7 +999,7 @@ def roles_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = ROLES_PUTS
             time.sleep(0.01)
 
     topo = {"blobnodes": BLOB_NODES, "disks_per_blobnode": BLOB_DISKS, "proxy": True,
-            "access": True, "scheduler": True, "ec_engine": "auto", "blob_size": blob_size,
+            "access": True, "scheduler": True, "ec_engine": "cuda", "blob_size": blob_size,
             "audit_dir": os.path.join(workdir, "audit"), "device": device}
     c = Cluster(topo, workdir, timeout=300.0)
     codes = None
@@ -1092,7 +1117,8 @@ def raft_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = RAFT_PUTS,
     log, driven only over HTTP: a clustermgr raft group of 3 on static
     ports, 6 blobnodes x 3 disks, 3 schedulers each hosting a member of
     the 2-partition ``repair`` and ``delete`` topics, a proxy, and access
-    (``ec_engine`` auto, ``blob_size`` 8 MiB, the proxy's volume lease)
+    (``ec_engine`` cuda, as in phase ``roles``; ``blob_size`` 8 MiB, the
+    proxy's volume lease)
     producing into that bus. Every role but the clustermgrs is pointed at
     a clustermgr follower, which redirects to the leader (421). (Without
     the proxy's lease every PUT allocates a volume of 16 units from the
@@ -1252,7 +1278,7 @@ def raft_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = RAFT_PUTS,
         start("proxy", "proxy", {"clustermgr_addr": follower})
         proxy = up(["proxy"])[0]
         start("access", "access", {"clustermgr_addr": follower, "mq_members": sched_addrs,
-                                   "proxy_addr": proxy, "ec_engine": "auto",
+                                   "proxy_addr": proxy, "ec_engine": "cuda",
                                    "blob_size": blob_size})
         acc = up(["access"])[0]
         wait_for(lambda: bus_led(sched_addrs), "the bus partitions to elect")
@@ -2485,16 +2511,22 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
         bodies = [rng.integers(0, 256, small_size, dtype=np.uint8).tobytes()
                   for _ in range(small_threads)]
         key = lambda j: f"/bkt/small/o{j:05d}"  # noqa: E731
-        put_st = timed_ops("put_small", n_small, small_threads,
-                           lambda j: s3.req("PUT", key(j), bodies[j % small_threads])[0])
+        put = timed_ops("put_small", n_small, small_threads,
+                        lambda j: s3.req("PUT", key(j), bodies[j % small_threads]))
         head = timed_ops("head_small", n_small, small_threads, lambda j: s3.req("HEAD", key(j)))
         got = timed_ops("get_small", n_small, small_threads, lambda j: s3.req("GET", key(j)))
-        cases["put_small"]["all_200"] = all(st == 200 for st in put_st)
+        for label, replies in (("put_small", put), ("head_small", head), ("get_small", got)):
+            # every status, and the first refusals' bodies (S3 error documents)
+            cases[label]["statuses"] = dict(collections.Counter(str(r[0]) for r in replies))
+            cases[label]["refusals"] = [(key(j), st, bytes(b[:300]).decode("latin-1"))
+                                        for j, (st, b, _) in enumerate(replies)
+                                        if st != 200][:4]
+        cases["put_small"]["all_200"] = all(st == 200 for st, _, _ in put)
         cases["head_small"]["sizes"] = all(st == 200 and h.get("content-length") == str(small_size)
                                            for st, _, h in head)
         cases["get_small"]["equal"] = all(st == 200 and b == bodies[j % small_threads]
                                           for j, (st, b, _) in enumerate(got))
-        del head, got
+        del put, head, got
         cases["list_v2"] = list_v2(s3, "small/", None)
         cases["list_v2_delimiter"] = list_v2(s3, "small/", "/")
         deleted, t = 0, time.perf_counter()
@@ -2649,6 +2681,661 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
                         "blob_shard": -(-blob_size // tac.n)},
             "cases": cases, "refusals": refusals, "role_tiered_get": role_tiered,
             "parity_blobs": len(parity_equal), "exit_codes": {**codes},
+            "launches": launches, "checks": checks}
+
+
+def fs_doors_phase(dev, card: str, *, files: int = DOORS_FILES, file_size: int = DOORS_FILE,
+                   writers: int = DOORS_WRITERS, tier: int = DOORS_TIER,
+                   racers: int = DOORS_RACERS, race_files: int = DOORS_RACE_FILES,
+                   race_size: int = DOORS_RACE_SIZE, flash_node: int | None = None,
+                   flash_small: int = FLASH_SMALL_FILES, flash_big: int = FLASH_BIG_FILES,
+                   geo_records: int = GEO_RECORDS,
+                   blob_size: int = BLOB, device: str | None = None) -> dict:
+    """Phase ``fs_doors``: the file-system plane's three doors. Phase
+    ``fs``'s cluster (a master, 3 metanodes, 4 datanodes at replicas 3,
+    ``vol1`` of 3 meta and 4 data partitions, a clustermgr and 6
+    blobnodes x 3 disks, started by the launcher) with a
+    ``flashgroupmanager`` and two flash groups, ``az-a`` and ``az-b``, of
+    2 ``flashnode`` processes each (``flash_node`` bytes, None: the
+    role's default of 256 MiB), every one a ``python -m
+    cubefs_tpu_torch.cmd`` process; the master runs with
+    ``CUBEFS_META_SPLIT=1``. The client runs in this process with
+    ``CUBEFS_TIERING=1``; its ``BlobClient``'s ``AccessHandler`` runs
+    engine ``cuda`` on ``dev`` (8 MiB blobs, EC12P4), so kernel A
+    launches here.
+
+    Case ``split``: ``files`` files of ``file_size`` bytes from
+    ``writers`` threads, the last ``tier`` of them written last (their
+    inodes in the used upper half of the root's partition) and tiered by
+    one ``LcNode`` scan (A encodes the tier PUT stacks). The operator
+    reads the partition's fill and pins the midpoint of its used range;
+    ``racers`` threads then create and write files of ``race_size``
+    bytes in a directory of that partition (at most ``race_files``
+    each), and ``meta_split`` moves the upper half while they run. Then
+    ``meta_merge`` moves it back, and ``meta_balance`` (``auto``, the
+    door open) runs one action. Every racing create must land exactly
+    once; every replica of every partition give the same ``mp_digest``;
+    ``mp_version`` bump once per commit; every hot file read back
+    equal; each tiered file keep its ``cold.location`` and read back
+    equal through the blob plane, healthy and with one blobnode process
+    stopped (A rebuilds each blob that lost a data unit).
+
+    Case ``flash``: a client in ``az-a`` with ``CUBEFS_READ_CACHE=1``
+    (``CUBEFS_READ_HOT`` at its default of 2: a block is cached on its
+    second miss) reads a working set of ``flash_small`` files, half the
+    local group's capacity at most, three times: the third pass must be
+    all hits. Then ``flash_big`` files, twice that bound, twice: a fill
+    lands on the first live member of the elected group, so that member
+    holds twice its capacity's worth and evicts. It is killed mid-read:
+    the reads stay exact, its breaker opens, and misses fall back to the
+    datanodes and refill the group's other member. A file
+    cached in both AZs is overwritten: no live flashnode of either AZ
+    serves a key of its old extents afterwards, and both AZs' clients
+    read the new bytes.
+
+    Case ``geo``: two regions in this process (``CUBEFS_GEO=1``), each
+    a standalone partition behind a ``GeoGateway``, as
+    ``tests/test_georepl.py`` builds them: ``geo_records`` inode records
+    shipped; a third, empty follower bootstrapped from a snapshot over
+    the packet mux (a multi-MB image in chunk trains); fence, promote,
+    demote (the old primary bootstrapped from the new), failback (drain,
+    fence both, promote, demote); equal digests on both sides and a
+    follower mutation refused with 452. ``device`` is the roles' (None:
+    the card). Returns the record with ``checks`` and ``launches`` (this
+    process's)."""
+    from types import SimpleNamespace
+
+    from cubefs_tpu_torch.blob.access import AccessConfig
+    from cubefs_tpu_torch.blob.sdk import BlobClient
+    from cubefs_tpu_torch.codec import codemode as cm
+    from cubefs_tpu_torch.deploy.cluster import Cluster, Proc
+    from cubefs_tpu_torch.fs import georepl as fsgeo
+    from cubefs_tpu_torch.fs.client import FileSystem, FsError
+    from cubefs_tpu_torch.fs.lcnode import LcNode, LifecycleRule
+    from cubefs_tpu_torch.fs.metanode import FILE, MetaPartition
+    from cubefs_tpu_torch.fs.remotecache import CachedReader, FlashGroupManager
+    from cubefs_tpu_torch.ops import _build
+    from cubefs_tpu_torch.runtime import fsnative
+    from cubefs_tpu_torch.utils import georepl as geo
+    from cubefs_tpu_torch.utils import metrics, packet, qos, rpc
+
+    class RoleRing(FlashGroupManager):
+        """The ``flashgroupmanager`` role's ring as a client holds it: the
+        reference's AZ-local election over the role's ``ring`` reply (live
+        members only), read again at most once a second."""
+
+        def __init__(self, addr: str):
+            super().__init__()
+            self.addr, self._at, self._ring = addr, float("-inf"), {}
+
+        def ring_info(self) -> dict:
+            if time.monotonic() - self._at > 1.0:
+                st, meta, _ = rpc_post(self.addr, "ring", {})
+                if st != 200:
+                    raise AssertionError(f"ring answered {st} {meta}")
+                self._ring = {int(g): {"addrs": a, "az": meta["azs"][g]}
+                              for g, a in meta["groups"].items()}
+                self._at = time.monotonic()
+            return self._ring
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 23)
+    print(json.dumps({"phase": "fs_doors", "card": card}), flush=True)
+    fsnative.load()
+    workdir = tempfile.mkdtemp(prefix="cubefs-smoke-doors-")
+    gate = (qos.DEFAULT._tracker, qos.DEFAULT._levels, qos.DEFAULT._last_refresh)
+    qos.DEFAULT._tracker, qos.DEFAULT._levels = Quiet(), {}
+    qos.DEFAULT._last_refresh = float("-inf")
+    doors = ("CUBEFS_TIERING", "CUBEFS_UNTIER_HOT", "CUBEFS_META_SPLIT", "CUBEFS_READ_CACHE",
+             "CUBEFS_READ_HOT", "CUBEFS_GEO")
+    saved_env = {v: os.environ.pop(v, None) for v in doors}
+    cases: dict[str, dict] = {}
+    checks: dict[str, bool] = {}
+    topo = {"metanodes": 3, "datanodes": 4, "replicas": 3,
+            "volume": {"name": "vol1", "mp_count": 3, "dp_count": 4},
+            "blobnodes": BLOB_NODES, "disks_per_blobnode": BLOB_DISKS, "access": False,
+            "device": device}
+    c = Cluster(topo, workdir, timeout=300.0)
+    clients: list = []
+    geo_gws: list = []
+    codes: dict = {}
+    killed: set = set()
+
+    def a_launches() -> int:
+        return _build.LAUNCHES["gf_apply"]
+
+    def wait_for(cond, what: str, timeout: float = 120.0):
+        deadline = time.perf_counter() + timeout
+        while True:
+            try:
+                got = cond()
+                if got:
+                    return got
+            except Exception as e:  # an election in progress
+                err = e
+            else:
+                err = None
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"phase fs_doors: timed out waiting for {what}: {err}")
+            time.sleep(0.1)
+
+    def call(addr: str, method: str, args: dict) -> dict:
+        st, meta, _ = rpc_post(addr, method, args)
+        if st != 200:
+            raise AssertionError(f"{method} answered {st} {meta}")
+        return meta
+
+    def read_all(fs, paths: list, want: list, threads: int) -> dict:
+        got = [None] * len(paths)
+
+        def one(i):
+            for j in range(i, len(paths), threads):
+                got[j] = fs.read_file(paths[j])
+        secs = run_threads(threads, one)
+        nbytes = sum(len(w) for w in want)
+        return {"files": len(paths), "bytes": nbytes, "seconds": secs,
+                "gib_s": nbytes / secs / 2**30,
+                "equal": all(g == w for g, w in zip(got, want))}
+
+    try:
+        os.environ["CUBEFS_META_SPLIT"] = "1"  # the master's automatic sweep door
+        t = time.perf_counter()
+        try:
+            state = c.up()
+            fgm_proc = Proc("flashgroupmanager", {
+                "role": "flashgroupmanager", "name": "flashgroupmanager", "listen_port": 0,
+                "data_dir": os.path.join(workdir, "fgm")}, workdir)
+            c.procs.append(fgm_proc)
+            fgm = fgm_proc.wait_addr(300.0)
+            flash_procs = {}
+            for az in ("az-a", "az-b"):
+                for i in range(2):
+                    cfg = {"role": "flashnode", "name": f"flashnode-{az}{i}", "listen_port": 0,
+                           "fgm_addr": fgm}
+                    if flash_node is not None:
+                        cfg["capacity_bytes"] = flash_node
+                    flash_procs[(az, i)] = Proc("flashnode", cfg, workdir)
+            c.procs.extend(flash_procs.values())
+            flash = {k: p.wait_addr(300.0) for k, p in flash_procs.items()}
+        finally:
+            os.environ.pop("CUBEFS_META_SPLIT", None)
+        startup_s = time.perf_counter() - t
+        for gid, az in ((1, "az-a"), (2, "az-b")):
+            call(fgm, "register_group", {"group_id": gid, "az": az,
+                                         "addrs": [flash[(az, 0)], flash[(az, 1)]]})
+        roles = state["roles"]
+        master, cmgr = roles["master"][0], roles["clustermgr"][0]
+        vol = state["volume"]
+
+        def view() -> dict:
+            return call(master, "client_view", {"name": vol})["volume"]
+
+        pool = rpc.NodePool()
+        acfg = AccessConfig(blob_size=blob_size, engine="cuda", device=dev)
+        blob = BlobClient(cmgr, pool, acfg)
+        os.environ["CUBEFS_TIERING"] = "1"
+        try:
+            fs = FileSystem(view(), pool, blob_client=blob, master_addr=master)
+        finally:
+            os.environ.pop("CUBEFS_TIERING", None)
+        clients.append(fs)
+        for d in ("/data", "/cold", "/split", "/flash"):
+            wait_for(lambda d=d: fs.mkdir(d), f"mkdir {d}")
+
+        # == case split: tiered files held across a live split =================
+        _build.reset_launches()
+        t_case = time.perf_counter()
+        hot = [f"/data/f{i}" for i in range(files - tier)]
+        cold = [f"/cold/c{i}" for i in range(tier)]
+        payload = {p: rng.integers(0, 256, file_size, dtype=np.uint8).tobytes()
+                   for p in hot + cold}
+
+        def write(paths: list):
+            def one(i):
+                for j in range(i, len(paths), writers):
+                    fs.write_file(paths[j], payload[paths[j]])
+            return run_threads(writers, one)
+        secs = write(hot) + write(cold)  # the tiered inodes are the last allocated
+        cases["split_write"] = {"files": files, "bytes": files * file_size, "seconds": secs,
+                                "gib_s": files * file_size / secs / 2**30}
+        now = time.time()
+        for p in cold:
+            fs.meta.set_attr(fs.resolve(p), mtime=now - 7200)
+        lc = LcNode(fs, engine=fs.tiering)
+        lc.set_rules([LifecycleRule("tier", prefix="/cold/", transition_after_s=3600)])
+        a0, t = a_launches(), time.perf_counter()
+        rep = lc.scan_once()
+        inodes = {p: fs.meta.inode_get(fs.resolve(p)) for p in cold}
+        locations = {p: i["xattr"].get("cold.location") for p, i in inodes.items()}
+        cases["split_tier"] = {"files": tier, "bytes": tier * file_size,
+                               "seconds": time.perf_counter() - t,
+                               "transitioned": rep.transitioned, "errors": rep.errors,
+                               "a_launches": a_launches() - a0}
+        locs = [json.loads(v) for v in locations.values() if v]
+        mode = cm.CodeMode(locs[0]["codemode"]) if locs else None
+        checks["split_tiered_all"] = (rep.transitioned == tier and not rep.errors
+                                      and len(locs) == tier
+                                      and all(not i["extents"] for i in inodes.values()))
+        checks["split_tier_launched_a_per_file"] = cases["split_tier"]["a_launches"] >= tier
+
+        # the operator's plan: the root partition, split at the midpoint of
+        # its used range (read before the racers start)
+        v0 = view()
+        donor = next(m for m in v0["mps"] if m["start"] <= 1 < m["end"])
+        fill = rpc.call_replicas(pool, donor.get("addrs") or [donor["addr"]], "mp_fill",
+                                 {"pid": donor["pid"]})[0]
+        split_ino = donor["start"] + (min(fill["next_ino"], donor["end"]) - donor["start"]) // 2
+        tiered_inos = [i["ino"] for i in inodes.values()]
+        checks["split_moves_the_tiered_inodes"] = all(i >= split_ino for i in tiered_inos)
+
+        done: list = []
+        errors: list = []
+        retries = [0]
+        stop = threading.Event()
+        small = rng.integers(0, 256, race_size, dtype=np.uint8).tobytes()
+        lock = threading.Lock()
+
+        def racer(i):
+            k = 0
+            while not stop.is_set() and k < race_files:
+                name = f"t{i}-{k}"
+                try:
+                    fs.write_file(f"/split/{name}", small)
+                except FsError as e:
+                    if e.errno == 28:  # alloc range migrating: the SDK retries
+                        with lock:
+                            retries[0] += 1
+                        time.sleep(0.01)
+                        continue
+                    with lock:
+                        errors.append((name, e.errno, str(e)))
+                    return
+                with lock:
+                    done.append(name)
+                k += 1
+
+        ex = ThreadPoolExecutor(racers)
+        futs = [ex.submit(racer, i) for i in range(racers)]
+        t = time.perf_counter()
+        try:
+            st, res, _ = rpc_post(master, "meta_split", {"name": vol, "pid": donor["pid"],
+                                                          "split_ino": split_ino})
+        finally:
+            split_s = time.perf_counter() - t
+            stop.set()
+            for f in futs:
+                f.result()
+            ex.shutdown()
+        if st != 200:
+            raise AssertionError(f"meta_split answered {st} {res}")
+        v1 = view()
+        names = fs.readdir("/split")
+        race_paths = [f"/split/{n}" for n in sorted(done)]
+        race_back = read_all(fs, race_paths, [small] * len(race_paths), 8)
+        cases["split"] = {"seconds": split_s, "split_ino": split_ino,
+                          "donor_pid": donor["pid"], "target_pid": res["target_pid"],
+                          "copied_inodes": res["copied_inodes"],
+                          "delta_applied": res["delta_applied"],
+                          "delta_failed": res["delta_failed"],
+                          "racing_creates": len(done), "racing_retries": retries[0],
+                          "racing_errors": errors[:8],
+                          "racing_creates_s": len(done) / split_s,
+                          "mp_version": [v0.get("mp_version", 0), v1.get("mp_version", 0)],
+                          "mps": len(v1["mps"])}
+        checks["split_racing_creates_exactly_once"] = (
+            not errors and len(done) > 0 and sorted(names) == sorted(done)
+            and len(names) == len(set(names)) and race_back["equal"])
+        checks["split_copied_the_upper_half"] = res["copied_inodes"] > 0 and res["split_ino"] == split_ino
+
+        def digests() -> dict:
+            """{pid: [each replica's mp_digest]} once every replica agrees."""
+            def agree():
+                out = {}
+                for m in view()["mps"]:
+                    out[m["pid"]] = [call(a, "mp_digest", {"pid": m["pid"]})["digest"]
+                                     for a in m.get("addrs") or [m["addr"]]]
+                return out if all(len(set(d)) == 1 for d in out.values()) else None
+            return wait_for(agree, "every replica's digest to agree", 60.0)
+
+        def cold_ok() -> bool:
+            now_locs = {p: fs.meta.inode_get(fs.resolve(p))["xattr"].get("cold.location")
+                        for p in cold}
+            return now_locs == locations
+
+        digest_split = digests()
+        checks["split_replicas_equal"] = bool(digest_split)
+        checks["split_cold_location_kept"] = cold_ok()
+        checks["split_mp_version_once"] = v1["mp_version"] == v0.get("mp_version", 0) + 1
+
+        t = time.perf_counter()
+        st, mres, _ = rpc_post(master, "meta_merge", {"name": vol,
+                                                      "donor_pid": res["target_pid"]})
+        if st != 200:
+            raise AssertionError(f"meta_merge answered {st} {mres}")
+        merge_s = time.perf_counter() - t
+        # a table that still names the merged-away partition answers 404
+        # for its inodes in both packages: the client re-reads its view
+        fs.meta.refresh_view(force=True)
+        v2 = view()
+        digest_merge = digests()
+        checks["merge_mp_version_once"] = v2["mp_version"] == v1["mp_version"] + 1
+        checks["merge_restores_the_table"] = sorted(
+            (m["pid"], m["start"], m["end"]) for m in v2["mps"]) == sorted(
+            (m["pid"], m["start"], m["end"]) for m in v0["mps"])
+        checks["merge_cold_location_kept"] = cold_ok()
+
+        t = time.perf_counter()
+        bal = call(master, "meta_balance", {"max_moves": 1, "auto": True})
+        balance_s = time.perf_counter() - t
+        fs.meta.refresh_view(force=True)
+        v3 = view()
+        digest_balance = digests()
+        status = call(master, "meta_status", {"name": vol})
+        checks["balance_ran_behind_the_door"] = (
+            "skipped" not in bal and status["door"] and not bal["failed"]
+            and not status["in_flight"])
+        checks["balance_mp_version_per_action"] = (
+            v3["mp_version"] == v2["mp_version"] + len(bal["actions"]))
+        checks["balance_cold_location_kept"] = cold_ok()
+        cases["merge"] = {"seconds": merge_s, "copied_inodes": mres["copied_inodes"],
+                          "delta_applied": mres["delta_applied"],
+                          "mp_version": v2["mp_version"], "mps": len(v2["mps"])}
+        cases["balance"] = {"seconds": balance_s,
+                            "actions": [(a["kind"], a["pid"]) for a in bal["actions"]],
+                            "imbalance": bal["imbalance"], "mp_version": v3["mp_version"],
+                            "mps": len(v3["mps"])}
+        checks["split_namespace_kept"] = sorted(fs.readdir("/split")) == sorted(done)
+        cases["split_hot_read"] = read_all(fs, hot, [payload[p] for p in hot], writers)
+        checks["split_hot_read.equal"] = cases["split_hot_read"]["equal"]
+
+        def cold_reads(label: str) -> None:
+            a0, ms, got = a_launches(), [], []
+            for p in cold:
+                t = time.perf_counter()
+                got.append(fs.read_file(p))
+                ms.append((time.perf_counter() - t) * 1e3)
+            cases[label] = {"files": tier, "ms_runs": ms, "ms": statistics.median(ms),
+                            "a_launches": a_launches() - a0,
+                            "equal": all(g == payload[p] for g, p in zip(got, cold))}
+        cold_reads("split_cold_read")
+        tac = cm.tactic(mode)
+        vols = tiered_volumes(cmgr, locs)
+        parity_equal = tiered_parity_equal(vols, locs, tac.n, tac.m)
+        stopped, blob_exit, lost = stop_a_blobnode(c, roles["blobnode"], vols, locs,
+                                                   tac.n, tac.m)
+        killed.add(stopped)
+        cold_reads("split_degraded_cold_read")
+        cases["split_degraded_cold_read"].update({"stopped": stopped, "exit": blob_exit,
+                                                  "blobs_lost_a_data_unit": lost})
+        checks.update({
+            "split_tier_codemode_ec12p4": mode == cm.CodeMode.EC12P4,
+            "split_parity_equals_plain": bool(parity_equal) and all(parity_equal),
+            "split_cold_read.equal": cases["split_cold_read"]["equal"],
+            "split_degraded_cold_read.equal": cases["split_degraded_cold_read"]["equal"],
+            "split_degraded_launched_a_per_lost_blob": lost > 0 and
+            cases["split_degraded_cold_read"]["a_launches"] >= lost,
+            "split_blobnode_exit_0": blob_exit == 0,
+        })
+        cases["split_case_seconds"] = time.perf_counter() - t_case
+        split_launches = a_launches()
+
+        # == case flash: the AZ-local read tier =================================
+        t_case = time.perf_counter()
+        ring_a, ring_b = RoleRing(fgm), RoleRing(fgm)
+        os.environ["CUBEFS_READ_CACHE"] = "1"
+        try:
+            fsa = FileSystem(view(), pool, master_addr=master, flash_fgm=ring_a,
+                             client_az="az-a")
+            fsb = FileSystem(view(), pool, master_addr=master, flash_fgm=ring_b,
+                             client_az="az-b")
+        finally:
+            os.environ.pop("CUBEFS_READ_CACHE", None)
+        clients.extend((fsa, fsb))
+        rca, rcb = fsa.read_cache, fsb.read_cache
+        checks["flash_reader_is_the_door"] = (isinstance(rca, CachedReader)
+                                              and rca.hotness_threshold == 2)
+        node_cap = call(flash[("az-a", 0)], "stats", {})["capacity"]
+
+        def fills() -> dict:
+            return {o: metrics.readcache_fills.value(outcome=o)
+                    for o in ("populated", "skipped_cold", "failed", "suppressed")}
+
+        def flash_pass(label: str, fsx, paths: list, threads: int = 4) -> dict:
+            rc = fsx.read_cache
+            h0, m0, f0 = rc.hits, rc.misses, fills()
+            s0 = {s: metrics.readcache_serves.value(scope=s) for s in ("az_local", "cross_az")}
+            rec = read_all(fsx, paths, [payload[p] for p in paths], threads)
+            f1 = fills()
+            rec.update({"hits": rc.hits - h0, "misses": rc.misses - m0,
+                        "fills": {k: f1[k] - f0[k] for k in f1},
+                        "serves": {s: metrics.readcache_serves.value(scope=s) - s0[s]
+                                   for s in s0}})
+            cases[label] = rec
+            return rec
+
+        small_set = hot[:flash_small]
+        group_cap = 2 * node_cap
+        checks["flash_small_set_fits_half_the_group"] = (
+            len(small_set) * file_size <= group_cap // 2)
+        for n in (1, 2, 3):
+            flash_pass(f"flash_small_pass{n}", fsa, small_set)
+        p3 = cases["flash_small_pass3"]
+        checks["flash_third_pass_all_hits"] = (p3["equal"] and p3["misses"] == 0
+                                               and p3["hits"] > 0)
+        checks["flash_first_passes_exact"] = all(
+            cases[f"flash_small_pass{n}"]["equal"] for n in (1, 2))
+        big_set = hot[flash_small:flash_small + flash_big]
+        checks["flash_big_set_twice_the_small_bound"] = (
+            len(big_set) * file_size >= group_cap and len(big_set) == flash_big)
+        for n in (1, 2):
+            flash_pass(f"flash_big_pass{n}", fsa, big_set)
+        stats_a = {i: call(flash[("az-a", i)], "stats", {}) for i in (0, 1)}
+        populated = cases["flash_big_pass2"]["fills"]["populated"]
+        checks["flash_big_evicts"] = (
+            cases["flash_big_pass1"]["equal"] and cases["flash_big_pass2"]["equal"]
+            and populated * (128 << 10) > node_cap
+            and all(s["bytes"] <= s["capacity"] for s in stats_a.values()))
+        cases["flash_big_node_stats"] = stats_a
+
+        # the az-a flashnode holding the fills, killed mid-read
+        victim = max((0, 1), key=lambda i: stats_a[i]["items"])
+        vaddr, vproc = flash[("az-a", victim)], flash_procs[("az-a", victim)]
+        resident = big_set[-2:]  # among the last files filled: the LRU kept them
+        # a quarter of the way into the pass (128 KiB cache blocks)
+        at_kill = rca.hits + rca.misses + max(1, len(resident) * file_size // (128 << 10) // 4)
+
+        def killer():
+            deadline = time.perf_counter() + 60
+            while rca.hits + rca.misses < at_kill and time.perf_counter() < deadline:
+                time.sleep(0.001)
+            vproc.p.kill()
+        kt = threading.Thread(target=killer)
+        kt.start()
+        flash_pass("flash_kill_pass", fsa, resident, threads=1)
+        kt.join()
+        vproc.p.wait(60)
+        killed.add(vproc.name)
+        flash_pass("flash_after_kill_pass", fsa, resident, threads=1)
+        survivor = flash[("az-a", 1 - victim)]
+        surv_stats = call(survivor, "stats", {})
+        k1, k2 = cases["flash_kill_pass"], cases["flash_after_kill_pass"]
+        checks["flash_kill_reads_exact"] = k1["equal"] and k2["equal"]
+        checks["flash_kill_breaker_open"] = rca.breaker.state(vaddr) != "closed"
+        checks["flash_kill_falls_back_and_refills"] = (
+            k1["misses"] > 0 and k1["fills"]["populated"] > 0 and surv_stats["items"] > 0
+            and k2["hits"] > 0)
+        cases["flash_kill"] = {"killed": vproc.name, "survivor_items": surv_stats["items"]}
+
+        # a file cached in both AZs, overwritten
+        target = small_set[0]
+        for n in (1, 2):
+            flash_pass(f"flash_az_a_pass{n}", fsa, [target], threads=1)
+            flash_pass(f"flash_az_b_pass{n}", fsb, [target], threads=1)
+        old_keys = CachedReader.keys_for_extents(
+            fs.meta.inode_get(fs.resolve(target))["extents"])
+        live = [a for k, a in flash.items() if a != vaddr]
+
+        def cached(keys) -> int:
+            return sum(rpc_post(a, "cache_get", {"key": k})[0] == 200
+                       for a in live for k in keys)
+        cached_before = cached(old_keys)
+        new = rng.integers(0, 256, file_size, dtype=np.uint8).tobytes()
+        inv0 = metrics.readcache_invalidations.value()
+        t = time.perf_counter()
+        fsa.write_file(target, new)
+        overwrite_s = time.perf_counter() - t
+        payload[target] = new
+        cached_after = cached(old_keys)
+        both = {"az-a": fsa.read_file(target) == new, "az-b": fsb.read_file(target) == new}
+        cases["flash_overwrite"] = {"seconds": overwrite_s, "old_keys": len(old_keys),
+                                    "cached_before": cached_before,
+                                    "cached_after": cached_after,
+                                    "invalidated": metrics.readcache_invalidations.value() - inv0,
+                                    "read_new": both}
+        checks["flash_overwrite_invalidates_every_az"] = (
+            cached_before > len(old_keys) and cached_after == 0 and all(both.values()))
+        cases["flash_case_seconds"] = time.perf_counter() - t_case
+
+        # == case geo: two regions in this process ==============================
+        t_case = time.perf_counter()
+        os.environ["CUBEFS_GEO"] = "1"
+        try:
+            gpool = rpc.NodePool()
+
+            def region(name: str, role: str, peer: str | None):
+                mp = MetaPartition(1, 100, 10**7)
+                gw = fsgeo.GeoGateway(name, gpool, f"geo-{name}", peer_addr=peer, role=role)
+                gw.attach_metanode(SimpleNamespace(partitions={1: mp}, rafts={}),
+                                   primaries={1: "mn-r1"})
+                geo_gws.append(gw)
+                return mp, gw
+
+            mp1, gw1 = region("r1", "primary", "geo-r2")
+            mp2, gw2 = region("r2", "follower", "geo-r1")
+
+            def mk(mp, ino: int) -> None:
+                mp.submit({"op": "mk_inode", "ino": ino, "type": FILE, "mode": 0o644,
+                           "target": f"smoke-{ino:08d}", "ts": float(ino),
+                           "op_id": f"mk-{ino}"})
+
+            def drain(gw) -> int:
+                n = 0
+                while gw._parts["mp:1"].shipper.pending_bytes():
+                    out = gw.pump(max_records=1024)["mp:1"]
+                    if "error" in out:
+                        raise AssertionError(f"geo pump failed: {out}")
+                    n += 1
+                return n
+
+            t = time.perf_counter()
+            for ino in range(1000, 1000 + geo_records):
+                mk(mp1, ino)
+            submit_s = time.perf_counter() - t
+            t = time.perf_counter()
+            pumps = drain(gw1)
+            ship_s = time.perf_counter() - t
+            cases["geo_ship"] = {"records": geo_records, "submit_s": submit_s,
+                                 "ship_s": ship_s, "records_s": geo_records / ship_s,
+                                 "pumps": pumps,
+                                 "applied_seq": gw2._parts["mp:1"].applier.applied_seq}
+            checks["geo_ship_converges"] = (
+                geo.fsm_digest(mp1) == geo.fsm_digest(mp2)
+                and gw2._parts["mp:1"].applier.applied_seq == geo_records)
+
+            # a third region joins empty: bootstrapped over the packet mux
+            mp3, gw3 = region("r3", "follower", "geo-r1")
+            gw1.serve_packets()
+            gw3._parts["mp:1"].needs_bootstrap = True
+            gw1.peer_addr = "geo-r3"
+            image = len(mp1.state_bytes())
+            rx0 = metrics.pkt_frames.value(dir="rx", side="client")
+            t = time.perf_counter()
+            boot = gw1.pump()["mp:1"]
+            boot_s = time.perf_counter() - t
+            frames = metrics.pkt_frames.value(dir="rx", side="client") - rx0
+            gw1.peer_addr = "geo-r2"
+            cases["geo_bootstrap"] = {"image_bytes": image, "seconds": boot_s,
+                                      "mib_s": image / boot_s / MIB, "frames": frames,
+                                      "applied_seq": boot.get("applied_seq")}
+            checks["geo_bootstrap_over_the_mux"] = (
+                boot.get("applied_seq") == geo_records and geo.fsm_digest(mp3) == geo.fsm_digest(mp1)
+                and image > 2 * MIB and frames >= image // packet.chunk_size()
+                and bool(gw3._wires))
+
+            # fence -> promote -> the old primary demoted and bootstrapped
+            t = time.perf_counter()
+            gw2.transition("fence", op_id="smoke-fence")
+            promo = gw2.transition("promote", op_id="smoke-promote")
+            again = gw2.transition("promote", op_id="smoke-promote")
+            gw1.transition("demote", op_id="smoke-demote")
+            gw2.serve_packets()
+            for ino in range(100, 100 + 512):
+                mk(mp2, ino)
+            drain(gw2)
+            after_failover = geo.fsm_digest(mp1) == geo.fsm_digest(mp2)
+            # failback: drain under FAILBACK_SYNC, quiesce both, swap
+            gw2.transition("failback_sync", op_id="smoke-fb")
+            for ino in range(700, 700 + 256):
+                mk(mp2, ino)
+            drain(gw2)
+            gw2.transition("fence", op_id="smoke-fence2")
+            gw1.transition("fence", op_id="smoke-fence3")
+            back = gw1.transition("promote", op_id="smoke-promote2")
+            gw2.transition("demote", op_id="smoke-demote2")
+            for ino in range(50000, 50000 + 256):
+                mk(mp1, ino)
+            drain(gw1)
+            cycle_s = time.perf_counter() - t
+            try:
+                mk(mp2, 99999)
+                refused = None
+            except rpc.RpcError as e:
+                refused = e.code
+            cases["geo_cycle"] = {"seconds": cycle_s, "epochs": [gw1.controller.epoch,
+                                                                 gw2.controller.epoch],
+                                  "states": [gw1.controller.state, gw2.controller.state],
+                                  "follower_refused": refused,
+                                  "inodes": [len(mp1.inodes), len(mp2.inodes)]}
+            checks.update({
+                "geo_promote_once": (promo["epoch"], promo["replayed"]) == (1, False)
+                and (again["epoch"], again["replayed"]) == (1, True),
+                "geo_failover_converges": after_failover,
+                "geo_failback_epoch_2": back["epoch"] == 2,
+                "geo_states": cases["geo_cycle"]["states"] == ["PROMOTED", "FOLLOWING"],
+                "geo_digests_equal": geo.fsm_digest(mp1) == geo.fsm_digest(mp2)
+                and sorted(mp1.inodes) == sorted(mp2.inodes),
+                "geo_follower_refused_452": refused == rpc.GEO_REDIRECT,
+            })
+        finally:
+            os.environ.pop("CUBEFS_GEO", None)
+        cases["geo_case_seconds"] = time.perf_counter() - t_case
+        launches = {"gf_apply": a_launches()}
+    finally:
+        for gw in geo_gws:
+            gw.close()
+        for fsx in clients:
+            for cl in (*fsx.meta._packet_clients.values(), *fsx.data._packet_clients.values()):
+                cl.close()
+        codes = c.down()
+        shutil.rmtree(workdir, ignore_errors=True)
+        qos.DEFAULT._tracker, qos.DEFAULT._levels, qos.DEFAULT._last_refresh = gate
+        for k, v in saved_env.items():
+            if v is not None:
+                os.environ[k] = v
+    checks["every_role_exited_0"] = all(rc == 0 for name, rc in codes.items()
+                                        if name not in killed)
+    return {"phase": "fs_doors", "card": card, "seconds": time.perf_counter() - t_phase,
+            "startup_s": startup_s,
+            "cluster": {"roles": {r: len(a) for r, a in roles.items()},
+                        "flashgroupmanager": 1, "flashnodes": len(flash),
+                        "flash_node_bytes": node_cap, "replicas": 3, "mp_count": 3,
+                        "dp_count": 4, "files": files, "file_size": file_size,
+                        "writers": writers, "tiered": tier, "racers": racers,
+                        "flash_small_files": flash_small, "geo_records": geo_records,
+                        "blob_size": blob_size, "codemode": mode.name if mode else None},
+            "cases": cases, "digests": {"split": digest_split, "merge": digest_merge,
+                                        "balance": digest_balance},
+            "exit_codes": {**codes}, "split_launches": split_launches,
             "launches": launches, "checks": checks}
 
 
@@ -3632,9 +4319,9 @@ def main() -> int:
         raise AssertionError(f"blob checks failed: {failed}")
 
     # -- 13. the blob roles over HTTP: every role a process of its own --------
-    # The access process builds nothing (phase build did) and reads the
-    # crossover table phase engines measured; its A launches come from its
-    # /metrics. Nothing in this process launches a kernel here.
+    # The access process builds nothing (phase build did) and runs engine
+    # cuda; its A launches come from its /metrics. Nothing in this process
+    # launches a kernel here.
     torch.cuda.empty_cache()
     roles = roles_phase(dev, card)
     emit(roles)
@@ -3694,7 +4381,19 @@ def main() -> int:
     if failed:
         raise AssertionError(f"s3 checks failed: {failed}")
 
-    # -- 19. the sharded step: 8 ranks over torch.distributed ----------------
+    # -- 19. the file-system plane's doors: split, flash tier, geo ----------
+    # The roles are processes; the client, its cold tier's blob codec and
+    # the two geo regions run here: A encodes the tier PUTs and rebuilds
+    # the degraded cold reads after the split in this process, on engine
+    # cuda. Counts from 0: A only.
+    torch.cuda.empty_cache()
+    doors = fs_doors_phase(dev, card)
+    emit(doors)
+    failed = [k for k, v in doors["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"fs_doors checks failed: {failed}")
+
+    # -- 20. the sharded step: 8 ranks over torch.distributed ----------------
     # Built above, in this process: the ranks find the libraries and run
     # no nvcc. Every rank runs A and B on its own block; the collectives
     # go through gloo, which stages CUDA buffers through host memory and
@@ -3717,7 +4416,7 @@ def main() -> int:
     if sh_bad:
         raise AssertionError(f"sharded step checks failed: {sh_bad}")
 
-    # -- 20. the kernels' record --------------------------------------------
+    # -- 21. the kernels' record --------------------------------------------
     gf_main, crc_main = gf_results[0], crc_results[0]
     bm_main, probe_main = (next(x for x in bm_results
                                 if (x["case"], x["extract"], x["probe"], x["grid"]) == key)
@@ -3734,6 +4433,7 @@ def main() -> int:
          "integrity_scrub_launches": integrity["scrub_launches"],
          "fs_launches": fsp["launches"]["gf_apply"],
          "s3_launches": s3p["launches"]["gf_apply"],
+         "fs_doors_launches": doors["launches"]["gf_apply"],
          "equal": gf_main["equal"],
          "max_abs_err": gf_main["max_abs_err"], "ms": gf_main["ms"],
          "device_ms": gf_main["device_ms"], "plain_ms": gf_main["plain_ms"],

@@ -16,11 +16,13 @@ check that refuses writeback). A worker takes a ``device`` beside the
 engine name; its engine comes from ``codecio`` (None: the reference's
 default, ``CUBEFS_TPU_EC_ENGINE`` or the card). Shard-replica swaps
 (``shard_repair``/``shard_migrate`` tasks) are the reference's RPCs to
-the shardnodes.
+the shardnodes. ``CUBEFS_CODEC_MSR=0`` pins MSR-coded volumes to the
+conventional repair rows, as in the reference.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 import uuid
@@ -35,6 +37,14 @@ from ..utils import metrics, rpc
 from ..utils import trace as tracelib
 from . import codecio, topology
 from .types import VolumeInfo
+
+
+def _msr_repair_enabled() -> bool:
+    """CUBEFS_CODEC_MSR=0 pins MSR-coded volumes to the conventional
+    k-full-shard repair path (the A/B door; reconstruction stays
+    byte-identical either way, only the traffic shape changes)."""
+    return os.environ.get("CUBEFS_CODEC_MSR", "1").lower() not in (
+        "0", "false", "")
 
 
 class MsrFallback(Exception):
@@ -143,7 +153,7 @@ class RepairWorker:
         if not bids:
             return  # empty chunk: nothing to rebuild
 
-        if t.is_msr():
+        if t.is_msr() and _msr_repair_enabled():
             try:
                 return self._execute_msr(task, vol, t, bad, bids, dest)
             except MsrFallback as e:

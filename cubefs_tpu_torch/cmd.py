@@ -11,14 +11,17 @@ serves them with the RPC layer (``utils/rpc.py``), registers with its
 control plane, and blocks.
 
 Config keys (JSON), with the reference's names and defaults:
-  role:         master | metanode | datanode | objectnode | clustermgr |
-                blobnode | proxy | access | scheduler | codec
+  role:         master | metanode | datanode | objectnode | flashnode |
+                flashgroupmanager | clustermgr | blobnode | proxy | access |
+                scheduler | codec
   listen_host / listen_port: bind address (port 0: an ephemeral port)
   packet_port / read_port: a metanode's or datanode's binary packet
                 plane and native read plane (0: ephemeral), beside HTTP
   master_addr / clustermgr_addr / proxy_addr: upstreams
   replicas, allow_single_node, quota_sweep_interval, zone, rack, qos,
   disks:        the master's, metanode's and datanode's, as the reference's
+  capacity_bytes / fgm_addr: a flashnode's cache budget (default 256 MiB)
+                and the flash group manager it heartbeats to
   data_dirs / data_dir / queue_dir / task_dir: storage paths
   audit_dir:    the audit log, ``<audit_dir>/<role>.audit.log``, and the
                 slow-trace log, ``<audit_dir>/slowtrace.jsonl``
@@ -47,8 +50,9 @@ Config keys (JSON), with the reference's names and defaults:
                 objectnode run no kernel and take it without using it
 
 A metanode and a datanode register with the master and heartbeat to it
-every 3 s. The fuseclient, fsgateway, console, flashnode and
-flashgroupmanager roles wait for later slices (ROADMAP.md §1 item 4).
+every 3 s, a flashnode to its flash group manager. The fuseclient and
+fsgateway roles wait for a later slice (ROADMAP.md §1 item 4), the
+console for another (item 5).
 
 Each role prints ``[<role>] listening on host:port`` once it serves, the
 objectnode the reference's ``[objectnode] S3 on host:port``. On
@@ -180,6 +184,24 @@ def run_role(cfg: dict):
                        qos=cfg.get("qos"),  # {"read_bps":..., "write_bps":...}
                        disks=cfg.get("disks"))  # multi-disk: list of dirs
         return _fs_node("data", svc, cfg)[0], svc
+
+    if role == "flashnode":
+        from .fs.remotecache import FlashNode
+
+        svc = FlashNode(capacity_bytes=int(cfg.get("capacity_bytes", 256 << 20)))
+        srv = _serve(svc, cfg)
+        if cfg.get("fgm_addr"):
+            fgm = rpc.Client(cfg["fgm_addr"])
+            svc.role_closers = [_heartbeat_loop(
+                lambda: fgm.call("flashnode_heartbeat", {"addr": srv.addr}))]
+        return srv, svc
+
+    if role == "flashgroupmanager":
+        from .fs.remotecache import FlashGroupManager
+
+        svc = FlashGroupManager(data_dir=cfg.get("data_dir"), me=cfg.get("me"),
+                                peers=cfg.get("peers"), node_pool=pool)
+        return _serve(svc, cfg), svc
 
     if role == "objectnode":
         from .fs.client import FileSystem

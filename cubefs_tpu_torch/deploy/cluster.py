@@ -34,7 +34,8 @@ names. The objectnode (the S3 gateway) serves the volume as bucket
 file-system plane; it prints the reference's ``S3 on host:port``, which
 the launcher takes as its address line. The fsgateway and console are not
 ported: a topology that asks for either raises ``NotImplementedError``
-(ROADMAP.md §1 item 4).
+(ROADMAP.md §1 items 4 and 5). The launcher starts no flash role, as the
+reference's does not: ``python -m cubefs_tpu_torch.cmd`` serves them.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ import sys
 import threading
 import time
 
-UNPORTED = ("fsgateway", "console")
+UNPORTED = {"fsgateway": 4, "console": 5}  # role -> its ROADMAP.md §1 item
 # the lines a role prints once it serves: every role's, and the objectnode's
 READY = ("listening on", "S3 on")
 # the directory that holds the package: spawned roles import it from there
@@ -94,8 +95,9 @@ class Cluster:
     def __init__(self, topo: dict, workdir: str, timeout: float = 120.0):
         asked = [k for k in UNPORTED if topo.get(k)]
         if asked:
-            raise NotImplementedError(
-                f"roles {asked} are not ported yet (ROADMAP.md §1 item 4)")
+            raise NotImplementedError("; ".join(
+                f"role {k!r} is not ported yet (ROADMAP.md §1 item {UNPORTED[k]})"
+                for k in asked))
         if topo.get("objectnode") and not (topo.get("metanodes") or topo.get("datanodes")):
             raise ValueError("the objectnode serves a volume of the file-system plane: "
                              "give metanodes and datanodes")

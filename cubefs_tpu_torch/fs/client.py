@@ -6,10 +6,7 @@ sdk/data (ExtentClient/Streamer extent pipeline, stream/extent_client.go
 Python file API (open/read/write/mkdir/readdir/unlink/rename/stat) —
 the gateway layers (FUSE wire protocol, S3) sit on top of this facade.
 
-The port's copy of ``cubefs_tpu/fs/client.py``. The flash-tier read
-path (``CUBEFS_READ_CACHE`` with a flash group manager) raises
-``NotImplementedError``: ``fs/remotecache.py`` waits for a later slice
-(ROADMAP.md §1 item 4).
+The port's copy of ``cubefs_tpu/fs/client.py``.
 """
 
 from __future__ import annotations
@@ -1408,9 +1405,14 @@ class FileSystem:
             rc = 0
         self.read_cache = None
         if rc > 0 and flash_fgm is not None:
-            raise NotImplementedError(
-                "the flash-tier read cache (fs/remotecache.py CachedReader) "
-                "is not ported yet: ROADMAP.md §1 item 4")
+            try:
+                hot = int(os.environ.get("CUBEFS_READ_HOT", "2") or "2")
+            except ValueError:
+                hot = 2
+            from .remotecache import CachedReader
+            self.read_cache = CachedReader(
+                self.data, flash_fgm, node_pool, client_az=client_az,
+                hotness_threshold=hot)
         # A/B door for transparent cold-tier read-through:
         # CUBEFS_TIERING=1 (plus a blob client) routes extent-less
         # cold.location inodes to the blob plane; off (default) is

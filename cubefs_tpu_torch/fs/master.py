@@ -17,9 +17,7 @@ fresh mp for the next range, with zero interruption to existing ones.
 
 The port's copy of ``cubefs_tpu/fs/master.py``, on the port's raft and
 segmented ``utils/fsm.py``: its segment store, WAL and raft directory
-have the reference's format. ``split_engine`` raises
-``NotImplementedError``: ``fs/split.py`` waits for a later slice
-(ROADMAP.md §1 item 4).
+have the reference's format.
 """
 
 from __future__ import annotations
@@ -437,9 +435,11 @@ class Master(ReplicatedFsm):
                         or (q["max_files"] and u["files"] >= q["max_files"])):
                     exceeded.append(int(qid))
             for mp in v["mps"]:
+                # every replica, directly: the usage pull above taught
+                # the pool's client for a follower's address its leader
                 for addr in mp.get("addrs") or [mp["addr"]]:
                     try:
-                        self.nodes.get(addr).call("set_enforcement", {
+                        self.nodes.get_direct(addr).call("set_enforcement", {
                             "pid": mp["pid"], "vol_full": vol_full,
                             "exceeded": exceeded})
                     except Exception:
@@ -715,7 +715,7 @@ class Master(ReplicatedFsm):
         # idempotently re-creatable partitions behind.
         for m in mps:
             for a in m["addrs"]:
-                self.nodes.get(a).call(
+                self.nodes.get_direct(a).call(
                     "create_partition",
                     {"pid": m["pid"], "start": m["start"], "end": m["end"],
                      "peers": m["addrs"]},
@@ -874,7 +874,7 @@ class Master(ReplicatedFsm):
             created = []
             try:
                 for a in addrs:
-                    self.nodes.get(a).call(
+                    self.nodes.get_direct(a).call(
                         "create_partition",
                         {"pid": pid, "start": start, "end": end,
                          "peers": addrs})
@@ -884,8 +884,8 @@ class Master(ReplicatedFsm):
                 # orphan partitions on the nodes that did succeed
                 for a in created:
                     try:
-                        self.nodes.get(a).call("drop_partition",
-                                               {"pid": pid})
+                        self.nodes.get_direct(a).call("drop_partition",
+                                                      {"pid": pid})
                     except Exception:
                         pass
                 raise MasterError(f"split of {name!r} failed: {e}") from e
@@ -1197,13 +1197,13 @@ class Master(ReplicatedFsm):
 
     # ------------- elastic metadata plane (fs/split.py) -------------
     def split_engine(self):
-        """The reference's lazy SplitEngine. ``fs/split.py`` is not in
-        the port yet, so this (and the ``meta_split``, ``meta_merge``,
-        ``meta_balance`` and ``meta_status`` routes that call it)
-        raises."""
-        raise NotImplementedError(
-            "the elastic metadata plane (fs/split.py) is not ported yet: "
-            "ROADMAP.md §1 item 4")
+        """Lazy SplitEngine: masters that never migrate pay nothing,
+        and tests reach the same instance the RPCs drive."""
+        with self._lock:
+            if self._split_engine is None:
+                from .split import SplitEngine
+                self._split_engine = SplitEngine(self)
+            return self._split_engine
 
     def rpc_meta_split(self, args, body):
         self._leader_gate()

@@ -11,14 +11,12 @@ the same records.
 The port's copy of ``cubefs_tpu/fs/metanode.py``: the same snapshot,
 oplog and raft directories on disk and the same wire. The native read
 plane (``csrc/host/metaserve.cc``) is on unless ``CUBEFS_NATIVE_META=0``,
-and a failed build of it raises (the reference serves without it). A
-partition's geo hooks are inert: setting a tap or the follower mode
-raises ``NotImplementedError`` until geo-replication
-(``utils/georepl.py``, ROADMAP.md §1 item 4) is ported.
+and a failed build of it raises (the reference serves without it).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import threading
@@ -166,31 +164,6 @@ class MetaPartition:
                         "mode": 0o755, "ts": 0.0})
 
     # ---------------- apply door (replication interface) ----------------
-    _GEO_DOOR = ("geo-replication (utils/georepl.py, fs/georepl.py) is not "
-                 "ported yet: ROADMAP.md §1 item 4")
-
-    @property
-    def geo_tap(self):
-        """The shipper tap: always None until geo-replication is ported
-        (setting one raises)."""
-        return None
-
-    @geo_tap.setter
-    def geo_tap(self, tap) -> None:
-        if tap is not None:
-            raise NotImplementedError(self._GEO_DOOR)
-
-    @property
-    def geo_mode(self) -> str | None:
-        """None (primary service) until geo-replication is ported:
-        setting the follower mode raises."""
-        return None
-
-    @geo_mode.setter
-    def geo_mode(self, mode) -> None:
-        if mode is not None:
-            raise NotImplementedError(self._GEO_DOOR)
-
     def _geo_gate(self) -> None:
         """Follower fence: a geo-follower partition serves reads but
         bounces every mutation to the primary region with GeoRedirect
@@ -2389,6 +2362,18 @@ class MetaNode:
         with mp._lock:
             return {"next_ino": mp._next_ino, "start": mp.start,
                     "end": mp.end}
+
+    def rpc_mp_digest(self, args, body):
+        """This replica's own state digest, on any role (never leader-
+        routed): sha256 of the partition's serialized FSM state, the
+        digest the reference's split tests compare across replicas, with
+        the apply id it reflects. The port's addition: it lets a caller
+        outside the process hold a partition's replicas equal."""
+        mp = self._mp(args["pid"])
+        with mp._lock:
+            blob = json.dumps(mp._state_dict(), sort_keys=True, default=str)
+            aid = mp.apply_id
+        return {"digest": hashlib.sha256(blob.encode()).hexdigest(), "apply_id": aid}
 
     def rpc_drop_partition(self, args, body):
         """Remove a partition (failed-split rollback): stops its raft

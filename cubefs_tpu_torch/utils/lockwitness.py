@@ -17,12 +17,12 @@ shapes that only show up at runtime:
     thread holds any witnessed lock without an `allow_block`
     justification, that's a raise.
 
-Cost model: while the witness is off (the default), `make_lock()` /
+Cost model: when `CUBEFS_SANITIZE` is off (the default), `make_lock()` /
 `make_rlock()` return PLAIN `threading.Lock` / `threading.RLock`
 objects — identical class, zero wrappers, zero per-acquire overhead —
-and the rpc hook is a single module-global identity check. `install()`
-(or entering `installed()`) turns it on, and locks allocated from then
-on are witness-wrapped.
+and the rpc hook is a single module-global identity check (the same
+pattern as faultinject's `_fault`). Flip `CUBEFS_SANITIZE=1` (or enter
+`installed()`) and locks allocated from then on are witness-wrapped.
 
 Lock identity is the NAME (`"Class.attr"`), matching the static graph's
 nodes, so per-instance locks of one class merge into one order node.
@@ -320,9 +320,14 @@ class _WitnessLock:
                 f"{'rlock' if self._recursive else 'lock'}>")
 
 
-# ---------------- module switch ----------------
+# ---------------- module door ----------------
 
-_active: LockWitness | None = None
+def _env_on() -> bool:
+    return os.environ.get("CUBEFS_SANITIZE", "").lower() in (
+        "1", "true", "yes", "on")
+
+
+_active: LockWitness | None = LockWitness() if _env_on() else None
 
 
 def enabled() -> bool:
@@ -374,7 +379,7 @@ def uninstall() -> None:
 class installed:
     """Context manager: `with lockwitness.installed() as w:` — builds a
     cluster inside, every lock it allocates is witnessed, and `w.stats()`
-    is available after. Restores the previous witness on exit."""
+    is available after. Restores the previous door state on exit."""
 
     def __enter__(self) -> LockWitness:
         self._prev = _active

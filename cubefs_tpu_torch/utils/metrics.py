@@ -9,11 +9,10 @@ utilities (repair, placement, QoS, SLO, tracing, integrity, disk
 health), the chaos harness's ``faults_injected`` and raft's
 ``raft_*`` series, and the file-system plane's (metanode group commit
 and the client's fan-out, placement, the packet plane, tiering and the
-lifecycle scan, the geo fence's redirects). Any RPC server mounts
-``render_text()`` at ``GET /metrics``. Left out: the dp-split family
-(the port's batcher has no dp split), and the flash tier's, the elastic
-metadata plane's and geo-replication's other families (their modules
-wait for later slices).
+lifecycle scan, the flash read tier, the elastic metadata plane and
+geo-replication). Any RPC server mounts ``render_text()`` at
+``GET /metrics``. Left out: the dp-split family (the port's batcher has
+no dp split).
 
 Added here: ``cubefs_codec_kernel_launches_total``, the launches of each
 CUDA kernel, counted where ``ops/_build.launch`` counts them.
@@ -422,10 +421,48 @@ meta_fanout_inflight = DEFAULT.histogram(
     "partitions with a batch in flight when a fan-out drain launches — "
     "the client-side K window actually used",
     buckets=(1, 2, 3, 4, 6, 8, 12, 16, 24, 32))
+# AZ-local hot-read tier (fs/remotecache.py CachedReader) + fs-plane
+# topology (fs/topology.py). `cubefs-cli metrics read-path` renders the
+# readcache series; the misplaced gauge is the fs sweep's 0-contract.
+readcache_serves = DEFAULT.counter(
+    "cubefs_readcache_serves_total",
+    "reads answered by the flash tier, by the serving group's AZ "
+    "locality relative to the client", ("scope",))  # az_local | cross_az
+readcache_fills = DEFAULT.counter(
+    "cubefs_readcache_fills_total",
+    "miss-path outcomes: `populated` pushed the block to a flashnode, "
+    "`skipped_cold` failed the hotness admission bar (streaming scans "
+    "must not flush the hot set), `failed` found no writable flashnode, "
+    "`suppressed` deferred the fill during a QoS brownout",
+    ("outcome",))
+readcache_singleflight = DEFAULT.counter(
+    "cubefs_readcache_singleflight_total",
+    "concurrent misses of one block collapsed onto another caller's "
+    "in-flight datanode read (thundering-herd suppression)")
+readcache_invalidations = DEFAULT.counter(
+    "cubefs_readcache_invalidations_total",
+    "cached blocks evicted from the flash tier by write-path "
+    "invalidation (overwrite / truncate / unlink)")
 fs_placement_misplaced = DEFAULT.gauge(
     "cubefs_fs_placement_misplaced_replicas",
     "dp replicas colocated in an AZ beyond the one-per-AZ fair share; "
     "the rate-limited misplaced-replica sweep drives this to zero")
+# elastic metadata plane (fs/split.py). `cubefs-cli metrics meta`
+# renders these; the imbalance gauge is the meta balance sweep's
+# 0-contract, mirroring the fs placement sweep above.
+meta_partition_imbalance = DEFAULT.gauge(
+    "cubefs_meta_partition_imbalance",
+    "actionable metapartitions: hot/oversized ones the split engine "
+    "would split plus cold adjacent pairs it would merge; the "
+    "rate-limited balance sweep drives this to zero")
+meta_range_migrations = DEFAULT.counter(
+    "cubefs_meta_range_migrations_total",
+    "completed live inode-range migrations, by kind", ("kind",))
+meta_range_migration_aborts = DEFAULT.counter(
+    "cubefs_meta_range_migration_aborts_total",
+    "in-flight migrations aborted before COMMIT (poisoned delta tap, "
+    "donor leadership change, crash recovery); aborts are clean — the "
+    "range table never moved", ("reason",))
 meta_range_redirects = DEFAULT.counter(
     "cubefs_meta_range_redirects_total",
     "requests bounced with the 453 range-moved routing code (frozen "
@@ -492,7 +529,44 @@ pkt_stream_drops = DEFAULT.counter(
     "streams failed by a per-chunk CRC mismatch while the connection "
     "itself was kept (framing intact)", ("side",))
 
-# the geo-replication fence of utils/fsm.py and the metanode
+# cross-cluster geo-replication (utils/georepl.py + fs/georepl.py):
+# per-partition WAL shipping, fenced promote/failback, follower-region
+# read serving. `cubefs-cli metrics geo` renders these.
+geo_lag = DEFAULT.gauge(
+    "cubefs_geo_lag_seconds",
+    "replication lag per shipped partition: ship-stamp age of the last "
+    "record the follower applied (tenant-scoped RPO clock)",
+    ("part", "tenant"))
+geo_rpo_bytes = DEFAULT.gauge(
+    "cubefs_geo_rpo_bytes",
+    "bytes committed on the primary but not yet acknowledged by the "
+    "follower — the data at risk if the region dies right now",
+    ("part", "tenant"))
+geo_shipped = DEFAULT.counter(
+    "cubefs_geo_shipped_total",
+    "records shipped to the peer region, per partition", ("part",))
+geo_applied = DEFAULT.counter(
+    "cubefs_geo_applied_total",
+    "follower-side stream outcomes per partition: `applied`, "
+    "`duplicate` (seq <= applied, idempotent skip), `gap` (backfill "
+    "triggered), `corrupt` (framing/CRC rejected)", ("part", "outcome"))
+geo_fencing_rejections = DEFAULT.counter(
+    "cubefs_geo_fencing_rejections_total",
+    "shipped records rejected for carrying a stale fencing epoch (a "
+    "healed old primary replaying into a promoted follower)", ("part",))
+geo_backfills = DEFAULT.counter(
+    "cubefs_geo_backfills_total",
+    "gap recoveries per partition by kind: `ring` (bounded backfill "
+    "from the shipper's ring) or `bootstrap` (full snapshot transfer "
+    "over the packet mux)", ("part", "kind"))
+geo_state = DEFAULT.gauge(
+    "cubefs_geo_state",
+    "promote/failback state machine position per cluster: 0=PRIMARY "
+    "1=FOLLOWING 2=FENCED 3=PROMOTED 4=FAILBACK_SYNC", ("cluster",))
+geo_epoch = DEFAULT.gauge(
+    "cubefs_geo_epoch",
+    "current fencing epoch per cluster (monotonic; bumps on every "
+    "promote so stale-primary appends are rejectable)", ("cluster",))
 geo_redirects = DEFAULT.counter(
     "cubefs_geo_redirects_total",
     "mutations bounced off a follower region with GeoRedirect (the sdk "

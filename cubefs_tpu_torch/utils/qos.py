@@ -31,9 +31,9 @@ Decision order in `admit()` (cheapest check first):
 Shed requests raise `QosRejected` (RpcError code 429 with a
 retry-after hint); the blob SDK backs off through `RetryPolicy`, the
 S3 door maps it to 429 SlowDown. Degradation hooks
-(`scrub_suppressed`, `repair_step_scale`) let the scrubber and the
-repair scheduler shed deferrable background work while any path is
-browned out.
+(`fill_suppressed`, `scrub_suppressed`, `repair_step_scale`) let the
+flash tier's fills, the scrubber and the repair scheduler shed
+deferrable background work while any path is browned out.
 
 Everything rides the injectable Clock protocol (utils/retry.py), so
 the million-client loadgen drills run on FakeClock, deterministically.
@@ -376,6 +376,15 @@ def admit(path: str, tenant: str | None = None, priority: int | None = None,
           cost: float = 1.0, svc: str = ""):
     return DEFAULT.admit(path, tenant=tenant, priority=priority,
                          cost=cost, svc=svc)
+
+
+def fill_suppressed() -> bool:
+    """Flash-tier fill suppression: while any path burns SLO budget,
+    cache population (deferrable datanode->flashnode copies) stops so
+    the disks serve foreground IO. Reads still hit existing cache."""
+    if not enabled():
+        return False
+    return DEFAULT.max_level() >= 1
 
 
 def scrub_suppressed() -> bool:

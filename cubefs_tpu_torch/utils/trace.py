@@ -1,4 +1,4 @@
-"""Tracing: span tree with RPC-header propagation.
+"""Tracing: span tree with RPC-header propagation + tail forensics.
 
 Role parity: blobstore/common/trace (OpenTracing-compatible spans,
 span.go:36-44; HTTP header propagation, propagation.go; per-request
@@ -18,23 +18,19 @@ substrate:
   proposal batches) lose contextvars for all but the draining caller;
   `capture()` snapshots a submitter's context into a `SpanRef` and the
   drain span records **follows-from** links to every submitter.
-- a root's end-to-end "total" sample feeds the SLO tracker in
-  `utils/slo.py`; roots slower than `CUBEFS_SLOW_MS` capture their
-  reconstructed span tree to a rotating JSONL beside the audit log
-  (slow-request forensics, read by the RPC server's `/traces`).
-- the sampling bit travels in the header: a hop whose caller sent an
-  unsampled header records nothing; every root this process opens is
-  sampled.
+- head sampling (`CUBEFS_TRACE_SAMPLE`, decided once at the root and
+  propagated) and a `CUBEFS_TRACE=0` kill door that turns the whole
+  layer into no-ops for A/B overhead runs.
+- roots slower than `CUBEFS_SLOW_MS` capture their reconstructed span
+  tree to a rotating JSONL beside the audit log (slow-request
+  forensics), and feed the SLO tracker in `utils/slo.py`.
 
 Determinism: spans never touch `time.time()` / module-global `random`
 directly — timestamps come from an injectable Clock (the
 `utils/retry.py` protocol, `set_clock`) and ids from a seedable source
 (`seed_ids`), so chaos / tier-1 runs can reproduce span trees exactly.
 
-The port's copy of ``cubefs_tpu/utils/trace.py``, with the same behaviour
-at the reference's defaults and the same slow-trace capture. Left out:
-the reference's sampling and kill-door switches (``CUBEFS_TRACE_SAMPLE``,
-``CUBEFS_TRACE``).
+The port's copy of ``cubefs_tpu/utils/trace.py``, with the same behaviour.
 """
 
 from __future__ import annotations
@@ -76,8 +72,8 @@ MAX_KEPT = 2048
 # is evicted; pops skip entries whose key no longer matches.
 _evict_heap: list[tuple] = []
 
-# slow-request forensics: in-memory index for `/traces` plus a rotating
-# JSONL capture (configured beside the audit log).
+# slow-request forensics: in-memory index for `cubefs-cli trace slow`
+# plus a rotating JSONL capture (configured beside the audit log).
 _slow_index: list[dict] = []
 MAX_SLOW_KEPT = 256
 _slow_log: "_SlowTraceLog | None" = None
@@ -89,12 +85,28 @@ _ids = random.Random()
 
 # ---------------------------------------------------------------- knobs
 
-def slow_threshold_ms() -> float:
-    """Active slow-request threshold in ms (0 = forensics disabled)."""
+def enabled() -> bool:
+    """The CUBEFS_TRACE=0 A/B door: everything no-ops when off."""
+    return os.environ.get("CUBEFS_TRACE", "1") != "0"
+
+
+def _sample_rate() -> float:
+    try:
+        return float(os.environ.get("CUBEFS_TRACE_SAMPLE", "1.0"))
+    except ValueError:
+        return 1.0
+
+
+def _slow_ms() -> float:
     try:
         return float(os.environ.get("CUBEFS_SLOW_MS", "0"))
     except ValueError:
         return 0.0
+
+
+def slow_threshold_ms() -> float:
+    """Active slow-request threshold in ms (0 = forensics disabled)."""
+    return _slow_ms()
 
 
 def set_clock(clock) -> None:
@@ -129,6 +141,16 @@ def current_tenant() -> str:
     return _tenant.get()
 
 
+def _sample_decision() -> bool:
+    rate = _sample_rate()
+    if rate >= 1.0:
+        return True
+    if rate <= 0.0:
+        return False
+    with _id_lock:
+        return _ids.random() < rate
+
+
 # ---------------------------------------------------------------- spans
 
 class SpanRef(NamedTuple):
@@ -143,14 +165,14 @@ class SpanRef(NamedTuple):
 
 class Span:
     def __init__(self, operation: str, trace_id: str | None = None,
-                 parent_id: str | None = None, sampled: bool = True,
+                 parent_id: str | None = None, sampled: bool | None = None,
                  path: str = "", tenant: str = ""):
         self.operation = operation
         self.trace_id = trace_id or _rand_id()
         self.span_id = _rand_id()
         self.parent_id = parent_id
-        # children and remote hops inherit the root's sampling bit
-        self.sampled = sampled
+        # head sampling: roots decide once, children/remote hops inherit
+        self.sampled = _sample_decision() if sampled is None else sampled
         self.path = path
         self.tenant = tenant
         self.start = _clock.now()
@@ -253,8 +275,67 @@ class Span:
         return h
 
 
-def start_span(operation: str, links=()) -> Span:
+class _NoopSpan:
+    """Stand-in when CUBEFS_TRACE=0: the full Span surface, zero work.
+    Never enters the contextvar, so nothing downstream records either."""
+    __slots__ = ()
+    trace_id = ""
+    span_id = ""
+    parent_id = None
+    sampled = False
+    path = ""
+    tenant = ""
+    operation = ""
+    tags: dict = {}
+    follows: list = []
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
+
+    def finish(self):
+        pass
+
+    def set_tag(self, key, value):
+        return self
+
+    def set_path(self, path):
+        return self
+
+    def set_tenant(self, tenant):
+        return self
+
+    def link(self, ref):
+        return self
+
+    def ref(self):
+        return None
+
+    def log(self, message):
+        pass
+
+    def duration(self):
+        return 0.0
+
+    def track_log(self):
+        return ""
+
+    def to_dict(self):
+        return {}
+
+    def header(self):
+        return ""
+
+
+NOOP = _NoopSpan()
+
+
+def start_span(operation: str, links=()) -> "Span | _NoopSpan":
     """Child of the context's active span (or a fresh root)."""
+    if not enabled():
+        return NOOP
     parent = _current.get()
     if parent is not None:
         sp = Span(operation, parent.trace_id, parent.span_id,
@@ -268,7 +349,7 @@ def start_span(operation: str, links=()) -> Span:
 
 
 def path_span(path: str, operation: str | None = None,
-              tenant: str | None = None) -> Span:
+              tenant: str | None = None) -> "Span | _NoopSpan":
     """Span for a hot-path entry point: child of the active request
     span (the RPC hop) when one exists, else a fresh root. Stamps the
     `path` request family consumed by every stage() beneath it — and
@@ -290,7 +371,9 @@ def path_span(path: str, operation: str | None = None,
     return sp.set_path(path).set_tenant(tenant)
 
 
-def from_header(operation: str, header: str | None) -> Span:
+def from_header(operation: str, header: str | None) -> "Span | _NoopSpan":
+    if not enabled():
+        return NOOP
     if header:
         parts = header.split(":", 4)
         if len(parts) >= 2 and parts[0]:
@@ -367,9 +450,11 @@ def stage(name: str, path: str | None = None):
     The `path` label comes from the enclosing span (stamped by
     path_span / propagated in the header); pass it explicitly from
     contexts that have no request span (e.g. the raft apply loop,
-    which serves submitters it cannot see). No-ops entirely when no
-    path can be resolved.
+    which serves submitters it cannot see). No-ops entirely when the
+    CUBEFS_TRACE door is closed or no path can be resolved.
     """
+    if not enabled():
+        return _NOOP_STAGE
     if path is None and _current.get() is None:
         return _NOOP_STAGE
     return _StageTimer(name, path)
@@ -378,8 +463,8 @@ def stage(name: str, path: str | None = None):
 def observe_stage(name: str, path: str, seconds) -> None:
     """Record already-measured stage samples (scalar or iterable) —
     for queue waits measured from a submission timestamp rather than
-    around a with-block."""
-    if not path:
+    around a with-block. Honors the CUBEFS_TRACE door."""
+    if not enabled() or not path:
         return
     if hasattr(seconds, "__iter__"):
         metrics.request_stage_seconds.observe_many(
@@ -566,7 +651,7 @@ def slow_log_path() -> str | None:
 
 
 def _maybe_slow(root: Span) -> None:
-    threshold_ms = slow_threshold_ms()
+    threshold_ms = _slow_ms()
     if threshold_ms <= 0:
         return
     dur_ms = root.duration() * 1000.0

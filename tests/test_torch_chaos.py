@@ -5,8 +5,11 @@ pointed at the port (``port_copy``); a blob scenario's cluster is the
 port's in-process cluster of ``tests/test_torch_blob.py`` (``device=
 "cpu"``, engine ``cuda``: the device path on the plain version) where the
 reference builds its own. The file-system plane's scenarios run on the
-port's metanode and datanode; the flash-tier, dial, QoS-drill and AZ
-scenarios wait for the modules they drive (ROADMAP.md §1).
+port's metanode and datanode, the flash-tier drill on the port's
+``fs/remotecache.py``, and the AZ blackout on the port's copy of
+``tests/test_blob_topology.py``'s ``AZCluster`` (``device="cpu"``). The
+dial and QoS-drill scenarios wait for the modules they drive
+(ROADMAP.md §1).
 """
 
 import pytest
@@ -14,10 +17,12 @@ import pytest
 from cubefs_tpu_torch.utils import faultinject as fi
 from cubefs_tpu_torch.utils import rpc
 from test_torch_blob import PORT, Cluster, _isolated  # noqa: F401  (autouse fixture)
+from test_torch_blob_topology import BLOB_TOPOLOGY
 from test_torch_raft import port_copy, run_scenario
 
 CHAOS = port_copy("test_chaos", Cluster=lambda root, **kw: Cluster(PORT, root, engine="cuda",
-                                                                   **kw))
+                                                                   **kw),
+                  AZCluster=BLOB_TOPOLOGY.AZCluster, LRC=BLOB_TOPOLOGY.LRC)
 SCENARIOS = {  # the reference's scenarios whose modules the port holds
     "test_no_plan_means_no_hook_and_shared_null_sender",
     "test_blob_put_alloc_bids_exactly_once",
@@ -38,6 +43,9 @@ SCENARIOS = {  # the reference's scenarios whose modules the port holds
     "test_alloc_ino_exactly_once_under_duplicate_and_drop_after",
     "test_alloc_extent_exactly_once_under_duplicate",
     "test_raft_leader_killed_mid_batch_no_partial_apply",
+    # the failure-domain topology and the flash read tier
+    "test_single_az_blackout_serves_reads_then_rebalances_home",
+    "test_flashnode_death_and_az_blackout_reads_stay_exact",
 }
 
 

@@ -5,7 +5,8 @@ against the reference's on the CPU.
 - every scenario of the reference's ``test_fs_e2e``, ``test_extent_store``,
   ``test_packet``, ``test_packet_mux``, ``test_native_data``,
   ``test_native_meta``, ``test_datanode_raft``, ``test_master_segments``,
-  ``test_fs_topology``, ``test_meta_batch`` and ``test_meta_tx`` runs on
+  ``test_fs_topology``, ``test_meta_batch``, ``test_meta_tx``, ``test_quota``
+  and ``test_disk_manager`` runs on
   the port (``port_copy``), none skipped. ``test_extent_store``'s
   ``test_block_crcs_match_tpu_kernel`` holds the store's block CRCs
   against the port's plain ``crc32_blocks``; ``test_packet_mux``'s wire
@@ -18,8 +19,8 @@ against the reference's on the CPU.
 - the on-disk formats open in both packages: extent files, a metanode's
   snapshot and oplog, the master's segment store and WAL;
 - each switch the slice reads, flipped, gives the reference's result;
-- the three ``NotImplementedError`` doors of modules left for later
-  raise and name their ROADMAP item.
+- the three doors that waited for later modules (the split engine, the
+  flash read cache, the geo hooks) now serve as the reference's do.
 
 Tolerance: exact equality. Every wait is a condition polled against a
 deadline.
@@ -75,6 +76,8 @@ MODULES = {
     "test_fs_topology": port_copy("test_fs_topology"),
     "test_meta_batch": port_copy("test_meta_batch"),
     "test_meta_tx": port_copy("test_meta_tx"),
+    "test_quota": port_copy("test_quota"),
+    "test_disk_manager": port_copy("test_disk_manager"),
 }
 CASES = [(m, n) for m, mod in MODULES.items() for n in scenarios(mod)]
 
@@ -584,40 +587,51 @@ def test_switch_flipped_gives_the_reference_result(var, ref, tmp_path, monkeypat
     assert flipped["port"]["equal"] and default["port"]["equal"]
 
 
-# ---------------- the doors of modules left for later ----------------
+# ---------------- the doors of modules that came later ----------------
 
 def test_unported_doors_raise_and_name_their_roadmap_item(tmp_path, monkeypatch):
-    """``fs/split.py`` (the master's split engine and its routes),
-    ``fs/remotecache.py`` (the client's flash-tier read cache) and
-    geo-replication (a partition's tap and follower mode) raise
-    ``NotImplementedError`` naming ROADMAP.md §1 item 4; at their
-    defaults nothing reaches them."""
+    """The three doors that raised ``NotImplementedError`` until their
+    modules were ported now serve as the reference's do: the master's
+    lazy split engine and its ``meta_split``, ``meta_merge``,
+    ``meta_balance`` and ``meta_status`` routes, the client's flash-tier
+    read cache under ``CUBEFS_READ_CACHE`` with a flash group manager
+    (``CUBEFS_READ_HOT`` its admission bar), and a partition's geo tap
+    and follower mode, plain attributes. At their defaults nothing
+    reaches them."""
     from cubefs_tpu_torch.fs.client import FileSystem
     from cubefs_tpu_torch.fs.master import Master
     from cubefs_tpu_torch.fs.metanode import MetaPartition
-    from cubefs_tpu_torch.utils import rpc
+    from cubefs_tpu_torch.fs.remotecache import CachedReader, FlashGroupManager
+    from cubefs_tpu_torch.fs.split import SplitEngine
 
-    item = r"ROADMAP\.md §1 item 4"
     m = Master(rpc.NodePool(), allow_single_node=True)
-    with pytest.raises(NotImplementedError, match=r"fs/split\.py.*" + item):
-        m.split_engine()
-    for route in ("meta_split", "meta_merge", "meta_balance", "meta_status"):
-        with pytest.raises(NotImplementedError, match=item):
+    eng = m.split_engine()
+    assert isinstance(eng, SplitEngine) and m.split_engine() is eng
+    assert m.rpc_meta_status({}, b"") == {"door": False, "in_flight": {}, "volumes": {},
+                                          "imbalance": 0}
+    assert m.rpc_meta_balance({"auto": True}, b"")["skipped"]
+    for route in ("meta_split", "meta_merge"):
+        with pytest.raises(rpc.RpcError) as e:
             getattr(m, f"rpc_{route}")({"name": "v"}, b"")
+        assert e.value.code == 404
     c = FS_E2E.FsCluster(tmp_path)
     try:
         monkeypatch.setenv("CUBEFS_READ_CACHE", "1")
-        with pytest.raises(NotImplementedError, match=r"fs/remotecache\.py.*" + item):
-            FileSystem(c.view, c.pool, flash_fgm=object())
+        monkeypatch.setenv("CUBEFS_READ_HOT", "3")
+        rc = FileSystem(c.view, c.pool, flash_fgm=FlashGroupManager()).read_cache
+        assert isinstance(rc, CachedReader) and rc.hotness_threshold == 3
         assert FileSystem(c.view, c.pool).read_cache is None  # no flash group manager
     finally:
         c.stop()
     mp = MetaPartition(1, 1, 1 << 10)
-    with pytest.raises(NotImplementedError, match=r"georepl\.py.*" + item):
-        mp.geo_mode = "follower"
-    with pytest.raises(NotImplementedError, match=item):
-        mp.geo_tap = lambda record: None
-    mp.geo_mode, mp.geo_tap = None, None
     assert mp.geo_mode is None and mp.geo_tap is None
+    tapped = []
+    mp.geo_tap = tapped.append
     assert mp.submit({"op": "mknod", "parent": 1, "name": "x", "type": "file",
                       "mode": 0o644, "ts": 1.0})["ino"] == 2
+    assert [r["name"] for r in tapped] == ["x"]
+    mp.geo_mode, mp.geo_primary = "follower", "mn-r1"
+    with pytest.raises(rpc.RpcError) as e:
+        mp.submit({"op": "mknod", "parent": 1, "name": "y", "type": "file",
+                   "mode": 0o644, "ts": 1.0})
+    assert e.value.code == rpc.GEO_REDIRECT and "primary=mn-r1" in e.value.message

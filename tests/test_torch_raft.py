@@ -79,9 +79,37 @@ def scenarios(mod, names=None) -> list[str]:
     return sorted(n for n in vars(mod) if n.startswith("test_") and (names is None or n in names))
 
 
-def run_scenario(mod, name: str, request) -> None:
+def cases(mod, names=None) -> list:
+    """Each scenario of ``mod`` once per case of its own ``parametrize``
+    marks: ``pytest.param(name, {argname: value, ...})``, with the id
+    ``name[value-...]``."""
+    out = []
+    for name in scenarios(mod, names):
+        combos = [({}, [])]
+        for mark in getattr(getattr(mod, name), "pytestmark", []):
+            if mark.name != "parametrize":
+                continue
+            argnames, values = mark.args[0], mark.args[1]
+            if isinstance(argnames, str):
+                argnames = [a.strip() for a in argnames.split(",")]
+            ids = mark.kwargs.get("ids")
+            marked = []
+            for i, v in enumerate(values):
+                v = v if len(argnames) > 1 else (v,)
+                marked.append((dict(zip(argnames, v)),
+                               str(ids[i]) if ids else "-".join(map(str, v))))
+            combos = [({**p, **q}, [*k, i]) for p, k in combos for q, i in marked]
+        for params, key in combos:
+            out.append(pytest.param(name, params,
+                                    id=f"{name}[{'-'.join(key)}]" if key else name))
+    return out
+
+
+def run_scenario(mod, name: str, request, params=None) -> None:
     fn = getattr(mod, name)
-    fn(**{a: request.getfixturevalue(a) for a in inspect.signature(fn).parameters})
+    params = params or {}
+    fn(**{a: params[a] if a in params else request.getfixturevalue(a)
+          for a in inspect.signature(fn).parameters})
 
 
 def wait_for(cond, timeout=10.0, what="condition"):

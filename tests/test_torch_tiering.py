@@ -4,11 +4,9 @@ port's blob plane on ``device="cpu"`` (kernel A's plain version).
 
 - every scenario of the reference's ``tests/test_tiering.py`` runs on the
   port (``port_copy``), the chaos drill's kill at every phase boundary
-  and the WAL replay of a half-committed transition included. Not run:
-  ``test_flashnode_burn_aware_eviction`` and
-  ``test_flashnode_untagged_entries_stay_pure_lru``, which drive
-  ``fs/remotecache.py``'s ``FlashNode`` (ROADMAP.md §1 item 4). The CLI
-  view is the reference's ``cli._tiering_view``, here also reading the
+  and the WAL replay of a half-committed transition included, and the
+  two that drive ``fs/remotecache.py``'s ``FlashNode`` (burn-aware
+  eviction, untagged entries as a plain LRU). The CLI view is the reference's ``cli._tiering_view``, here also reading the
   port's own ``/metrics`` text;
 - a twin migration: the same aged file in both packages, each on its own
   blob plane, gives equal blob bytes on every disk, equal locations and
@@ -62,10 +60,9 @@ TIERING = port_copy(
     AccessHandler=access.AccessHandler,
     BlobNode=functools.partial(blobnode.BlobNode, device="cpu"),
     _tiering_view=_tiering_view)
-FLASH = ("test_flashnode_burn_aware_eviction", "test_flashnode_untagged_entries_stay_pure_lru")
 
 
-@pytest.mark.parametrize("name", [n for n in scenarios(TIERING) if n not in FLASH])
+@pytest.mark.parametrize("name", scenarios(TIERING))
 def test_reference_tiering_scenario_on_the_port(name, request):
     run_scenario(TIERING, name, request)
 
