@@ -65,7 +65,7 @@ units, and the worker rebuilds them; read-repair, with and without
 ``CUBEFS_VERIFY_READS``, and the scrub's doors (``CUBEFS_SCRUB``, a
 brownout, ``CUBEFS_QOS``). Then the metadata shards (phase
 ``shardnode``, host only): 3 shardnodes on raft over the native KV store
-take 16,384 items from 8 clients, split a shard, lose a node whose
+take 8,192 items from 8 clients, split a shard, lose a node whose
 replicas the scheduler's shard tasks move to a spare, and restart from
 their directories. Then the file-system plane (phase ``fs``): the
 launcher starts a master, 3 metanodes, 4 datanodes (replicas 3) and a
@@ -96,8 +96,18 @@ through kernel A with a blobnode process stopped); the AZ-local flash
 read tier with its hotness gate, eviction, a flashnode killed mid-read
 and an overwrite invalidating every AZ's copy; and geo-replication of
 16,384 inode records between two regions in this process, a snapshot
-bootstrap over the packet mux and a fenced failover and failback. Each
-phase prints one JSON line; any failure, in any rank, raises.
+bootstrap over the packet mux and a fenced failover and failback. Then
+the clients and mounts (phase ``clients``): the launcher adds the
+``codec``, ``fsgateway`` and ``console`` roles to phase ``fs``'s planes
+with a proxy and access, and a ``fuseclient`` mounts the volume; the
+port's C library (``runtime/nativeclient``, built here by g++) drives the
+codec role (A and B), the access role (64 MiB objects, A on the PUT
+stacks and the degraded GETs) and the gateway (``tests/c/fs_abi_test.c``
+compiled by gcc, 1 GiB in 1 MiB ``cfs_pwrite`` calls from 4 threads), a
+gateway and a FUSE mount in this process serve 4 tiered files cold
+(A rebuilds with a blobnode process stopped), and the typed SDK clients
+drive the master, clustermgr and console. Each phase prints one JSON
+line; any failure, in any rank, raises.
 
 The last lines are the kernels' record, the card's name and power limit
 as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -167,7 +177,9 @@ ROLES_PUTS = 8  # phase roles: 64 MiB objects PUT, read back, read degraded
 RAFT_PUTS = 4  # phase raft: 64 MiB objects PUT on each side of a clustermgr leader kill
 INTEGRITY_OBJECTS = 16  # phase integrity: 64 MiB objects, 1 GiB of user data
 INTEGRITY_GETS = 8  # foreground GETs alone and under a full scrub pass
-SN_ITEMS, SN_VALUE, SN_THREADS = 16384, 1024, 8  # phase shardnode: 16 MiB of 1 KiB items
+# phase shardnode: 8 MiB of 1 KiB items (cut from 16,384 items when phase
+# clients was added, to keep the whole script well inside its time limit)
+SN_ITEMS, SN_VALUE, SN_THREADS = 8192, 1024, 8
 # phase fs: 16 files of 64 MiB from 4 writers (1 GiB of user data, 3 GiB on
 # the datanodes at 3 replicas), 8 threads x 256 files of 4 KiB (cut from
 # 1,024 a thread: 8,192 creates, renames and stats took 243 s on the card's
@@ -196,6 +208,17 @@ DOORS_FILES, DOORS_FILE, DOORS_WRITERS, DOORS_TIER = 16, 64 * MIB, 4, 4
 DOORS_RACERS, DOORS_RACE_FILES, DOORS_RACE_SIZE = 4, 256, 4096
 FLASH_SMALL_FILES, FLASH_BIG_FILES = 3, 8
 GEO_RECORDS = 16384
+# phase clients: the C ABI against the launched codec role (EC12P4 stripes of
+# 4 MiB shards through /dev/shm, B = 4; 8 MiB blobs over the body, B = 4;
+# 1,024 CRC blocks of 128 KiB, the codec service phase's sizes), against the
+# access role (8 objects of 64 MiB) and against the fsgateway (16 files of
+# 64 MiB from 4 threads in 1 MiB calls, phase fs's volume of user data;
+# the first 4 tiered); the FUSE mount copies 4 files of 64 MiB in and out
+CLIENT_OBJECTS, CLIENT_OBJECT = 8, 64 * MIB
+CLIENT_FILES, CLIENT_FILE, CLIENT_WRITERS, CLIENT_CALL, CLIENT_TIER = 16, 64 * MIB, 4, MIB, 4
+CLIENT_FUSE_FILES = 4
+CLIENT_CRC_BLOCKS, CLIENT_CRC_BLOCK = 1024, 128 << 10
+LAUNCH_B = 'cubefs_codec_kernel_launches_total{kernel="crc32_blocks"}'
 S3_OWNER = {"access_key": "AKIDSMOKEOWNER000001", "secret_key": "smoke-owner-secret-key"}
 S3_STRANGER = {"access_key": "AKIDSMOKESTRANGER001", "secret_key": "smoke-stranger-secret"}
 # the C and D instantiations the kernels' record reports: (case, extract, probe, grid)
@@ -3339,6 +3362,600 @@ def fs_doors_phase(dev, card: str, *, files: int = DOORS_FILES, file_size: int =
             "launches": launches, "checks": checks}
 
 
+def clients_phase(dev, card: str, *, objects: int = CLIENT_OBJECTS, obj_size: int = CLIENT_OBJECT,
+                  files: int = CLIENT_FILES, file_size: int = CLIENT_FILE,
+                  writers: int = CLIENT_WRITERS, call_size: int = CLIENT_CALL,
+                  tier: int = CLIENT_TIER, fuse_files: int = CLIENT_FUSE_FILES,
+                  shard: int = SHARD, blob_size: int = BLOB,
+                  crc_blocks: int = CLIENT_CRC_BLOCKS, crc_block: int = CLIENT_CRC_BLOCK,
+                  device: str | None = None) -> dict:
+    """Phase ``clients``: the clients and mounts, through the port's C ABI
+    (``runtime/nativeclient``, built here from ``csrc/host/native_client.cc``).
+    The launcher starts a master, 3 metanodes, 4 datanodes at replicas 3
+    and ``vol1`` of 3 meta and 4 data partitions, a clustermgr with 6
+    blobnodes x 3 disks, a proxy, access (engine ``cuda``, ``blob_size``
+    blobs, EC12P4), a ``codec`` role (engine ``cuda``), an ``fsgateway``
+    and a ``console``, and then a ``fuseclient`` mounting ``vol1``, each a
+    ``python -m cubefs_tpu_torch.cmd`` process.
+
+    Case ``native_codec``: ``cfs_codec_encode_shm`` on EC12P4 stripes of
+    ``shard``-byte shards, B = 4; ``cfs_codec_encode`` on ``blob_size``
+    blobs over the body, B = 4; ``cfs_codec_crc32`` on ``crc_blocks``
+    blocks of ``crc_block`` bytes. Every reply is held against the plain
+    version on the card and zlib, and A's and B's launches are read from
+    the codec role's ``/metrics``.
+
+    Case ``native_blob``: ``cfs_blob_put`` of ``objects`` objects of
+    ``obj_size`` bytes, ``cfs_blob_get`` healthy, the parity on the
+    blobnodes held against the plain version, and later, with a blobnode
+    process stopped, again (A rebuilds in the access process, its
+    launches read from its ``/metrics``), then ``cfs_blob_delete``.
+
+    Case ``native_posix``: ``tests/c/fs_abi_test.c`` compiled with gcc
+    against the library and run against the launched gateway; ``files``
+    files of ``file_size`` bytes written by ``cfs_pwrite`` from
+    ``writers`` threads in ``call_size`` calls, read back by
+    ``cfs_pread`` and by the SDK's ``FileSystem``. Then an ``FsGateway``
+    in this process over a ``FileSystem`` with a ``BlobClient`` (engine
+    ``cuda`` on ``dev``) and ``CUBEFS_TIERING=1``: the first ``tier``
+    files tiered by one ``LcNode`` scan (A encodes the tier PUT stacks
+    here), read through the C ABI healthy and, later, with the blobnode
+    stopped (A rebuilds here each blob that lost a data unit). The
+    launched gateway, whose ``FileSystem`` has no blob client, reads a
+    tiered file as its size in zero bytes (the limit shared with the
+    reference).
+
+    Case ``fuse``: the tiered ``FileSystem`` mounted in this process:
+    ``cp`` of ``fuse_files`` files of ``file_size`` bytes in and out,
+    ``ls``, ``stat``, ``rename``, ``truncate`` and the xattr calls through
+    the kernel, and ``cat`` of the tiered files, healthy and with the
+    blobnode stopped (A rebuilds here); a file written through the
+    launched ``fuseclient``'s mount reads back equal through the SDK.
+    Every kernel-facing call runs in a child process under a timeout, and
+    a watchdog detaches this process's mount if the case outlives its
+    deadline. No ``fuse`` mount is left in ``/proc/mounts``.
+
+    Case ``console_sdk``: the typed clients against the launched roles
+    (``MasterClient.stat``/``node_list``, ``ClusterMgrClient.stat``, a
+    ``ConsoleClient`` login, ``users``, ``create_user`` and
+    ``create_volume``), and the console's ``/api/nodes`` equal to the
+    master's ``node_list``. ``device`` is the roles' (None: the card).
+    Returns the record with ``checks`` and ``launches`` per process."""
+    import ctypes
+    import glob
+    import hashlib
+
+    import torch
+
+    from cubefs_tpu_torch.blob.access import AccessConfig
+    from cubefs_tpu_torch.blob.sdk import BlobClient
+    from cubefs_tpu_torch.codec import codemode as cm
+    from cubefs_tpu_torch.deploy.cluster import Cluster, Proc
+    from cubefs_tpu_torch.fs import fuse
+    from cubefs_tpu_torch.fs.client import FileSystem
+    from cubefs_tpu_torch.fs.fsgateway import FsGateway
+    from cubefs_tpu_torch.fs.lcnode import LcNode, LifecycleRule
+    from cubefs_tpu_torch.ops import _build, gf256, rs_kernel
+    from cubefs_tpu_torch.runtime import fsnative, nativeclient
+    from cubefs_tpu_torch.sdk import ClusterMgrClient, ConsoleClient, MasterClient
+    from cubefs_tpu_torch.utils import qos, rpc
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 29)
+    print(json.dumps({"phase": "clients", "card": card}), flush=True)
+    if not os.path.exists("/dev/fuse") or os.geteuid() != 0:
+        raise AssertionError("phase clients: case fuse needs /dev/fuse and root")
+    t = time.perf_counter()
+    lib = nativeclient.load()
+    fsnative.load()
+    lib_build_s = time.perf_counter() - t
+    workdir = tempfile.mkdtemp(prefix="cubefs-smoke-clients-")
+    gate = (qos.DEFAULT._tracker, qos.DEFAULT._levels, qos.DEFAULT._last_refresh)
+    qos.DEFAULT._tracker, qos.DEFAULT._levels = Quiet(), {}
+    qos.DEFAULT._last_refresh = float("-inf")
+    doors = ("CUBEFS_TIERING", "CUBEFS_UNTIER_HOT", "CUBEFS_READ_CACHE", "CUBEFS_META_SPLIT")
+    saved_env = {v: os.environ.pop(v, None) for v in doors}
+    cases: dict[str, dict] = {}
+    checks: dict[str, bool] = {}
+    topo = {"metanodes": 3, "datanodes": 4, "replicas": 3,
+            "volume": {"name": "vol1", "mp_count": 3, "dp_count": 4},
+            "blobnodes": BLOB_NODES, "disks_per_blobnode": BLOB_DISKS, "access": True,
+            "proxy": True, "codec": True, "ec_engine": "cuda", "blob_size": blob_size,
+            "fsgateway": True, "console": True, "device": device}
+    c = Cluster(topo, workdir, timeout=300.0)
+    clients: list = []
+    mounts: list = []
+    gw_srv = None
+    codes: dict = {}
+    killed: set = set()
+    fired = threading.Event()
+    mnt, role_mnt = os.path.join(workdir, "mnt"), os.path.join(workdir, "role-mnt")
+
+    def a_launches() -> int:
+        return _build.LAUNCHES["gf_apply"]
+
+    def hp(addr: str) -> tuple[bytes, int]:
+        host, port = addr.rsplit(":", 1)
+        return host.encode(), int(port)
+
+    def wait_for(cond, what: str, timeout: float = 120.0):
+        deadline = time.perf_counter() + timeout
+        while True:
+            try:
+                got = cond()
+                if got:
+                    return got
+            except Exception as e:  # an election in progress
+                err = e
+            else:
+                err = None
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"phase clients: timed out waiting for {what}: {err}")
+            time.sleep(0.1)
+
+    def kernel_call(argv: list, timeout: float = 300.0) -> subprocess.CompletedProcess:
+        """A call through the kernel, in a child process under a timeout."""
+        run = subprocess.run(argv, capture_output=True, text=True, timeout=timeout)
+        if run.returncode:
+            raise AssertionError(f"{argv[:3]} exited {run.returncode}: {run.stderr[-2000:]}")
+        return run
+
+    def sha(path: str) -> str:
+        return kernel_call(["sha256sum", path]).stdout.split()[0]
+
+    def fuse_mounts() -> list[str]:
+        with open("/proc/mounts") as f:
+            return [ln.strip() for ln in f if ln.split()[2].startswith("fuse")
+                    and ln.split()[1].startswith(workdir)]
+
+    def c_open(h, path: str, flags: int, mode: int = 0o644) -> int:
+        fd = lib.cfs_open(h, path.encode(), flags, mode)
+        if fd < 0:
+            raise AssertionError(f"cfs_open {path}: {fd} {lib.cfs_last_error()}")
+        return fd
+
+    def c_read(addr: str, path: str, size: int) -> bytes:
+        h = lib.cfs_mount(*hp(addr))
+        try:
+            fd = c_open(h, path, 0)
+            buf = ctypes.create_string_buffer(size + 1)
+            n = lib.cfs_pread(h, fd, buf, size + 1, 0)
+            lib.cfs_close(h, fd)
+            return buf.raw[:max(n, 0)]
+        finally:
+            lib.cfs_unmount(h)
+
+    try:
+        t = time.perf_counter()
+        state = c.up()
+        roles = state["roles"]
+        master, cmgr = roles["master"][0], roles["clustermgr"][0]
+        fc = Proc("fuseclient", {"role": "fuseclient", "name": "fuseclient",
+                                 "master_addr": master, "vol": state["volume"],
+                                 "mountpoint": role_mnt, **({"device": device} if device else {})},
+                  workdir)
+        c.procs.append(fc)
+        checks["fuseclient_mounted"] = fc.wait_addr(300.0) == role_mnt
+        startup_s = time.perf_counter() - t
+        n, m = 12, 4
+        enc_rows = gf256.parity_matrix(n, m)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 29)
+
+        def rand(*shape) -> torch.Tensor:
+            return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+
+        def plain(x: torch.Tensor) -> np.ndarray:
+            return rs_kernel.gf_apply_bits(torch.from_numpy(rs_kernel.coeff_bits(enc_rows)),
+                                           x).cpu().numpy()
+
+        # == case native_codec: the C ABI against the codec role =============
+        codec = roles["codec"][0]
+        m0 = scrape(codec)
+        need = 4 * (n + m) * shard
+        shm_fs = os.statvfs("/dev/shm")
+        free = shm_fs.f_bavail * shm_fs.f_frsize
+        if free < need:
+            raise AssertionError(f"/dev/shm has {free} bytes free; cfs_codec_encode_shm needs {need}")
+
+        def timed(fn, reps: int = 3) -> tuple[list, list]:
+            outs, ms = [], []
+            for _ in range(reps):
+                t = time.perf_counter()
+                outs.append(fn())
+                ms.append((time.perf_counter() - t) * 1e3)
+            return outs, ms
+
+        x = rand(4, n, shard)
+        data = np.ascontiguousarray(x.cpu().numpy())
+        want = plain(x)
+        parity = np.zeros((4, m, shard), np.uint8)
+        rcs, ms = timed(lambda: lib.cfs_codec_encode_shm(
+            *hp(codec), n, m, shard, 4, data.ctypes.data_as(ctypes.c_void_p),
+            parity.ctypes.data_as(ctypes.c_void_p)))
+        cases["codec_encode_shm"] = {"shape": [4, n, shard], "bytes": data.nbytes,
+                                     "ms_runs": ms, "ms": statistics.median(ms),
+                                     "gib_s": data.nbytes / (statistics.median(ms) / 1e3) / 2**30,
+                                     "equal": rcs == [0] * 3 and np.array_equal(parity, want)}
+        checks["codec_encode_shm.equal"] = cases["codec_encode_shm"]["equal"]
+        checks["codec_encode_shm_no_leak"] = not glob.glob(f"/dev/shm/cubefs-codec-{os.getpid()}-*")
+        blob_s = -(-blob_size // n)
+        x = rand(4, n, blob_s)
+        body = x.cpu().numpy().tobytes()
+        want = plain(x)
+        parity = np.zeros((4, m, blob_s), np.uint8)
+        rcs, ms = timed(lambda: lib.cfs_codec_encode(
+            *hp(codec), n, m, blob_s, 4, body, parity.ctypes.data_as(ctypes.c_void_p)))
+        cases["codec_encode"] = {"shape": [4, n, blob_s], "bytes": len(body), "ms_runs": ms,
+                                 "ms": statistics.median(ms),
+                                 "gib_s": len(body) / (statistics.median(ms) / 1e3) / 2**30,
+                                 "equal": rcs == [0] * 3 and np.array_equal(parity, want)}
+        checks["codec_encode.equal"] = cases["codec_encode"]["equal"]
+        blocks = rand(crc_blocks, crc_block).cpu().numpy()
+        body = blocks.tobytes()
+        want_crc = [zlib.crc32(r) for r in blocks]
+        crcs = np.zeros(crc_blocks, np.uint32)
+        cnts, ms = timed(lambda: lib.cfs_codec_crc32(
+            *hp(codec), crc_block, body, len(body), crcs.ctypes.data_as(ctypes.c_void_p)))
+        cases["codec_crc32"] = {"blocks": crc_blocks, "block": crc_block, "bytes": len(body),
+                                "ms_runs": ms, "ms": statistics.median(ms),
+                                "gib_s": len(body) / (statistics.median(ms) / 1e3) / 2**30,
+                                "equal": cnts == [crc_blocks] * 3 and crcs.tolist() == want_crc}
+        checks["codec_crc32.equal"] = cases["codec_crc32"]["equal"]
+        del x, data, body, blocks
+        m1 = scrape(codec)
+        codec_launches = {"gf_apply": m1.get(LAUNCH_A, 0.0) - m0.get(LAUNCH_A, 0.0),
+                          "crc32_blocks": m1.get(LAUNCH_B, 0.0) - m0.get(LAUNCH_B, 0.0)}
+        checks["codec_role_launched_a_and_b"] = all(v > 0 for v in codec_launches.values())
+
+        # == case native_blob: the C ABI against the access role =============
+        acc = roles["access"][0]
+        objs = [rng.bytes(obj_size) for _ in range(objects)]
+        a0 = a0_access = scrape(acc).get(LAUNCH_A, 0.0)
+        locs, ms = [], []
+        for obj in objs:
+            loc_buf = ctypes.create_string_buffer(1 << 16)
+            t = time.perf_counter()
+            rc = lib.cfs_blob_put(*hp(acc), obj, len(obj), loc_buf, len(loc_buf))
+            ms.append((time.perf_counter() - t) * 1e3)
+            if rc != 0:
+                raise AssertionError(f"cfs_blob_put: {rc} {lib.cfs_last_error()}")
+            locs.append(json.loads(loc_buf.value)["location"])
+        put_a = scrape(acc).get(LAUNCH_A, 0.0) - a0
+        cases["blob_put"] = {"objects": objects, "bytes": objects * obj_size, "ms_runs": ms,
+                             "ms": statistics.median(ms),
+                             "gib_s": obj_size / (statistics.median(ms) / 1e3) / 2**30,
+                             "access_a_launches": put_a}
+        getbuf = ctypes.create_string_buffer(obj_size + 16)
+
+        def blob_gets(label: str) -> None:
+            a0, ms, equal = scrape(acc).get(LAUNCH_A, 0.0), [], []
+            for loc, obj in zip(locs, objs):
+                args = json.dumps({"location": loc}).encode()
+                t = time.perf_counter()
+                got = lib.cfs_blob_get(*hp(acc), args, getbuf, len(getbuf))
+                ms.append((time.perf_counter() - t) * 1e3)
+                equal.append(got == len(obj) and getbuf.raw[:got] == obj)
+            cases[label] = {"objects": objects, "ms_runs": ms, "ms": statistics.median(ms),
+                            "gib_s": obj_size / (statistics.median(ms) / 1e3) / 2**30,
+                            "access_a_launches": scrape(acc).get(LAUNCH_A, 0.0) - a0,
+                            "equal": all(equal)}
+            checks[f"{label}.equal"] = all(equal)
+        blob_gets("blob_get")
+        blob_mode = cm.CodeMode(locs[0]["codemode"])
+        blob_vols = tiered_volumes(cmgr, locs)
+        tac = cm.tactic(blob_mode)
+        blob_parity = tiered_parity_equal(blob_vols, locs, tac.n, tac.m)
+        checks["blob_codemode_ec12p4"] = blob_mode == cm.CodeMode.EC12P4
+        checks["blob_parity_equals_plain"] = bool(blob_parity) and all(blob_parity)
+        # the access role encodes a PUT's blobs as one stack: A once a PUT
+        checks["blob_put_launched_a_per_object"] = put_a >= objects
+
+        # == case native_posix: the C ABI against the fsgateway ===============
+        gw = roles["fsgateway"][0]
+        exe = os.path.join(workdir, "fs_abi_test")
+        root = os.path.dirname(os.path.abspath(__file__))
+        t = time.perf_counter()
+        kernel_call(["gcc", "-o", exe, os.path.join(root, "tests", "c", "fs_abi_test.c"),
+                     nativeclient.lib_path()])
+        abi = subprocess.run([exe, *gw.rsplit(":", 1)], capture_output=True, text=True,
+                             timeout=300, env={**os.environ, "LD_LIBRARY_PATH":
+                                               os.path.dirname(nativeclient.lib_path())})
+        cases["fs_abi_test"] = {"seconds": time.perf_counter() - t, "rc": abi.returncode,
+                                "stdout": abi.stdout[-200:], "stderr": abi.stderr[-400:]}
+        checks["fs_abi_test_ok"] = abi.returncode == 0 and "fs_abi_test OK" in abi.stdout
+        paths = [f"/posix/f{i:02d}" for i in range(files)]
+        payload = {p: rng.bytes(file_size) for p in paths}
+        h = lib.cfs_mount(*hp(gw))
+        wait_for(lambda: lib.cfs_mkdirs(h, b"/posix") == 0, "mkdirs /posix")
+        lib.cfs_unmount(h)
+
+        def pwrite_files(i):
+            h = lib.cfs_mount(*hp(gw))
+            try:
+                for p in paths[i::writers]:
+                    fd = c_open(h, p, 0o1 | 0o100)  # O_WRONLY | O_CREAT
+                    base = np.frombuffer(payload[p], np.uint8).ctypes.data
+                    for off in range(0, file_size, call_size):
+                        k = min(call_size, file_size - off)
+                        got = lib.cfs_pwrite(h, fd, ctypes.c_char_p(base + off), k, off)
+                        if got != k:
+                            raise AssertionError(f"cfs_pwrite {p}@{off}: {got} "
+                                                 f"{lib.cfs_last_error()}")
+                    lib.cfs_close(h, fd)
+            finally:
+                lib.cfs_unmount(h)
+        secs = run_threads(writers, pwrite_files)
+        cases["posix_pwrite"] = {"files": files, "bytes": files * file_size, "call": call_size,
+                                 "threads": writers, "seconds": secs,
+                                 "gib_s": files * file_size / secs / 2**30}
+        back: dict = {}
+
+        def pread_files(i):
+            for p in paths[i::writers]:
+                back[p] = c_read(gw, p, file_size)
+        secs = run_threads(writers, pread_files)
+        cases["posix_pread"] = {"files": files, "seconds": secs,
+                                "gib_s": files * file_size / secs / 2**30,
+                                "equal": all(back.get(p) == payload[p] for p in paths)}
+        checks["posix_pread.equal"] = cases["posix_pread"]["equal"]
+        del back
+
+        def view() -> dict:
+            return rpc.call(master, "client_view", {"name": state["volume"]})[0]["volume"]
+
+        pool = rpc.NodePool()
+        blob = BlobClient(cmgr, pool, AccessConfig(blob_size=blob_size, engine="cuda", device=dev))
+        os.environ["CUBEFS_TIERING"] = "1"
+        try:
+            fs = FileSystem(view(), pool, blob_client=blob, master_addr=master)
+        finally:
+            os.environ.pop("CUBEFS_TIERING", None)
+        clients.append(fs)
+        t = time.perf_counter()
+        sdk_equal = all(fs.read_file(p) == payload[p] for p in paths)
+        cases["posix_sdk_read"] = {"files": files, "seconds": time.perf_counter() - t,
+                                   "equal": sdk_equal}
+        checks["posix_sdk_read.equal"] = sdk_equal
+        cold = paths[:tier]
+        now = time.time()
+        for p in cold:
+            fs.meta.set_attr(fs.resolve(p), mtime=now - 7200)
+        lc = LcNode(fs, engine=fs.tiering)
+        lc.set_rules([LifecycleRule("tier", prefix="/posix/", transition_after_s=3600)])
+        a0, t = a_launches(), time.perf_counter()
+        rep = lc.scan_once()
+        inodes = {p: fs.meta.inode_get(fs.resolve(p)) for p in cold}
+        tiered = [json.loads(i["xattr"]["cold.location"]) for i in inodes.values()
+                  if i["xattr"].get("cold.location")]
+        cases["posix_tier"] = {"files": tier, "seconds": time.perf_counter() - t,
+                               "transitioned": rep.transitioned, "errors": rep.errors,
+                               "a_launches": a_launches() - a0}
+        checks["posix_tiered_all"] = (rep.transitioned == tier and not rep.errors
+                                      and len(tiered) == tier
+                                      and all(not i["extents"] for i in inodes.values()))
+        checks["posix_tier_launched_a_per_file"] = cases["posix_tier"]["a_launches"] >= tier
+        tier_vols = tiered_volumes(cmgr, tiered)
+        tier_tac = cm.tactic(cm.CodeMode(tiered[0]["codemode"]))
+        tier_parity = tiered_parity_equal(tier_vols, tiered, tier_tac.n, tier_tac.m)
+        checks["posix_tier_codemode_ec12p4"] = tier_tac.n == n and tier_tac.m == m
+        checks["posix_tier_parity_equals_plain"] = bool(tier_parity) and all(tier_parity)
+        gw_srv = rpc.RpcServer(rpc.expose(FsGateway(fs)), service="fsgateway").start()
+
+        def cold_reads(label: str) -> None:
+            a0, ms, equal = a_launches(), [], []
+            for p in cold:
+                t = time.perf_counter()
+                equal.append(c_read(gw_srv.addr, p, file_size) == payload[p])
+                ms.append((time.perf_counter() - t) * 1e3)
+            cases[label] = {"files": tier, "ms_runs": ms, "ms": statistics.median(ms),
+                            "a_launches": a_launches() - a0, "equal": all(equal)}
+            checks[f"{label}.equal"] = all(equal)
+        cold_reads("posix_cold_read")
+        checks["launched_gateway_reads_tiered_as_zeros"] = (
+            c_read(gw, cold[0], file_size) == bytes(file_size))
+
+        # == case fuse: the tiered volume and the fuseclient through the kernel
+        def detach():
+            fired.set()
+            for mt in mounts:
+                mt.unmount()
+        watchdog = threading.Timer(600.0, detach)
+        watchdog.daemon = True
+        watchdog.start()
+        t = time.perf_counter()
+        mounts.append(fuse.mount(fs, mnt))
+        kernel_call([sys.executable, "-c", f"import os; os.listdir({mnt!r})"], timeout=30)
+        cases["fuse_mount_s"] = time.perf_counter() - t
+        local = os.path.join(workdir, "local")
+        os.makedirs(local)
+        names = [f"g{i}" for i in range(fuse_files)]
+        for name, p in zip(names, paths[tier:]):
+            with open(os.path.join(local, name), "wb") as f:
+                f.write(payload[p])
+        kernel_call(["mkdir", f"{mnt}/fuse"])
+        t = time.perf_counter()
+        kernel_call(["cp", *[os.path.join(local, x) for x in names], f"{mnt}/fuse/"])
+        cp_in = time.perf_counter() - t
+        os.makedirs(os.path.join(workdir, "out"))
+        t = time.perf_counter()
+        kernel_call(["cp", *[f"{mnt}/fuse/{x}" for x in names], os.path.join(workdir, "out")])
+        cp_out = time.perf_counter() - t
+        out_equal = all(open(os.path.join(workdir, "out", x), "rb").read() == payload[p]
+                        for x, p in zip(names, paths[tier:]))
+        sdk_equal = all(fs.read_file(f"/fuse/{x}") == payload[p]
+                        for x, p in zip(names, paths[tier:]))
+        nbytes = fuse_files * file_size
+        cases["fuse_cp"] = {"files": fuse_files, "bytes": nbytes, "in_s": cp_in, "out_s": cp_out,
+                            "in_gib_s": nbytes / cp_in / 2**30, "out_gib_s": nbytes / cp_out / 2**30,
+                            "equal": out_equal, "sdk_equal": sdk_equal}
+        checks["fuse_cp.equal"] = out_equal and sdk_equal
+        posix = json.loads(kernel_call([sys.executable, "-c", r'''
+import json, os, subprocess, sys
+d = f"{sys.argv[1]}/fuse"
+out = {}
+
+def op(name, fn, *args):
+    try:
+        out[name] = fn(*args)
+    except OSError as e:
+        out[name] = {"errno": e.errno}
+
+op("ls", lambda: subprocess.run(["ls", "-1", d], capture_output=True, text=True,
+                                check=True).stdout.split())
+op("stat", lambda: [os.stat(f"{d}/g0").st_size, oct(os.stat(f"{d}/g0").st_mode),
+                    os.stat(f"{d}/g0").st_nlink])
+op("rename", os.rename, f"{d}/g0", f"{d}/renamed")
+op("after_rename", lambda: sorted(os.listdir(d)))
+op("truncate", os.truncate, f"{d}/renamed", 4096)
+op("truncated", lambda: os.stat(f"{d}/renamed").st_size)
+op("setxattr", os.setxattr, f"{d}/g1", "user.smoke", b"clients")
+op("getxattr", lambda: os.getxattr(f"{d}/g1", "user.smoke").decode())
+op("listxattr", os.listxattr, f"{d}/g1")
+op("removexattr", os.removexattr, f"{d}/g1", "user.smoke")
+op("listxattr_after", os.listxattr, f"{d}/g1")
+op("rmdir_nonempty", os.rmdir, d)
+print(json.dumps(out))
+''', mnt], timeout=120).stdout)
+        cases["fuse_posix"] = posix
+        checks["fuse_posix"] = (
+            posix["ls"] == sorted(names) and posix["stat"] == [file_size, oct(0o100644), 1]
+            and posix["rename"] is None
+            and posix["after_rename"] == sorted(["renamed", *names[1:]])
+            and posix["truncate"] is None and posix["truncated"] == 4096
+            and posix["rmdir_nonempty"] == {"errno": 39}
+            and fs.read_file("/fuse/renamed") == payload[paths[tier]][:4096])
+        # xattrs through the kernel: a round trip, or refused by the kernel
+        # itself where its FUSE client has no xattr calls (a gVisor kernel:
+        # EOPNOTSUPP, and an empty list)
+        xattrs = [posix[k] for k in ("setxattr", "getxattr", "listxattr", "removexattr",
+                                     "listxattr_after")]
+        refused = xattrs == [{"errno": 95}, {"errno": 95}, [], {"errno": 95}, []]
+        cases["fuse_xattr_refused_by_kernel"] = refused
+        checks["fuse_xattr"] = refused or xattrs == [None, "clients", ["user.smoke"], None, []]
+
+        def fuse_cold(label: str) -> None:
+            a0, ms, equal = a_launches(), [], []
+            for p in cold:
+                t = time.perf_counter()
+                equal.append(sha(f"{mnt}{p}") == hashlib.sha256(payload[p]).hexdigest())
+                ms.append((time.perf_counter() - t) * 1e3)
+            cases[label] = {"files": tier, "ms_runs": ms, "ms": statistics.median(ms),
+                            "a_launches": a_launches() - a0, "equal": all(equal)}
+            checks[f"{label}.equal"] = all(equal)
+        fuse_cold("fuse_cold_cat")
+        role_file = os.path.join(local, names[0])
+        t = time.perf_counter()
+        kernel_call(["cp", role_file, f"{role_mnt}/from_fuseclient"])
+        cases["fuseclient_cp_s"] = time.perf_counter() - t
+        checks["fuseclient_write_reads_back_through_the_sdk"] = (
+            fs.read_file("/from_fuseclient") == payload[paths[tier]])
+
+        # == case console_sdk: the typed clients and the console ================
+        t = time.perf_counter()
+        mc = MasterClient(master)
+        mstat, nodes = mc.stat(), mc.node_list()
+        cstat = ClusterMgrClient(cmgr).stat()
+        root_user = mc.create_user("root")
+        cc = ConsoleClient(roles["console"][0])
+        cc.login(root_user["access_key"], root_user["secret_key"])
+        carol = cc.create_user("smoke-carol")
+        newvol = cc.create_volume("smokevol", mp_count=1, dp_count=1)
+        users = cc.users()
+        st_, con_nodes = 0, {}
+        host, port = roles["console"][0].rsplit(":", 1)
+        conn = http.client.HTTPConnection(host, int(port), timeout=60)
+        try:
+            conn.request("GET", "/api/nodes")
+            resp = conn.getresponse()
+            st_, con_nodes = resp.status, json.loads(resp.read())
+        finally:
+            conn.close()
+        cases["console_sdk"] = {"seconds": time.perf_counter() - t,
+                                "master_volumes": sorted(mc.stat()["volumes"]),
+                                "metanodes": len(nodes["metanodes"]),
+                                "datanodes": len(nodes["datanodes"]),
+                                "clustermgr_stat_keys": sorted(cstat)[:12]}
+        checks["console_sdk"] = (
+            "vol1" in mstat["volumes"] and len(nodes["metanodes"]) == 3
+            and len(nodes["datanodes"]) == 4 and bool(cstat)
+            and newvol["name"] == "smokevol" and "smokevol" in mc.stat()["volumes"]
+            and carol["access_key"] in users and root_user["access_key"] in users)
+        checks["console_nodes_equal_the_masters"] = (
+            st_ == 200 and {k: len(v) for k, v in con_nodes.items()}
+            == {k: len(v) for k, v in mc.node_list().items()})
+
+        # == with one blobnode process stopped: A rebuilds ====================
+        vols = {**blob_vols, **tier_vols}
+        stopped, blob_exit, _ = stop_a_blobnode(c, roles["blobnode"], vols, locs + tiered,
+                                                min(tac.n, tier_tac.n), min(tac.m, tier_tac.m))
+        killed.add(stopped)
+        victim = next(p.addr for p in c.procs if p.name == stopped)
+
+        def lost_in(group: list, k: int) -> int:  # blobs of ``group`` that lost a data unit
+            return sum(sl["count"] for loc in group for sl in loc["slices"]
+                       if any(u["index"] < k and u["node_addr"] == victim
+                              for u in vols[sl["vid"]]["units"]))
+        lost_blob, lost_tier = lost_in(locs, tac.n), lost_in(tiered, tier_tac.n)
+        blob_gets("blob_degraded_get")
+        cold_reads("posix_degraded_cold_read")
+        fuse_cold("fuse_degraded_cold_cat")
+        cases["degraded"] = {"stopped": stopped, "exit": blob_exit,
+                             "blob_blobs_lost_a_data_unit": lost_blob,
+                             "tiered_blobs_lost_a_data_unit": lost_tier}
+        checks["degraded_stop_lost_data_units"] = lost_blob > 0 and lost_tier > 0
+        checks["blob_degraded_launched_a_per_lost_blob"] = (
+            cases["blob_degraded_get"]["access_a_launches"] >= lost_blob)
+        checks["posix_degraded_launched_a_per_lost_blob"] = (
+            cases["posix_degraded_cold_read"]["a_launches"] >= lost_tier)
+        checks["fuse_degraded_launched_a_per_lost_blob"] = (
+            cases["fuse_degraded_cold_cat"]["a_launches"] >= lost_tier)
+        deleted = []
+        for loc in locs:
+            args = json.dumps({"location": loc}).encode()
+            deleted.append((lib.cfs_blob_delete(*hp(acc), args),
+                            lib.cfs_blob_get(*hp(acc), args, getbuf, len(getbuf))))
+        checks["blob_delete_then_get_fails"] = all(d == 0 and g < 0 for d, g in deleted)
+        watchdog.cancel()
+        launches = {"this_process": {"gf_apply": a_launches(),
+                                     "crc32_blocks": _build.LAUNCHES["crc32_blocks"]},
+                    "codec_role": codec_launches,
+                    "access_role": {"gf_apply": scrape(acc).get(LAUNCH_A, 0.0) - a0_access}}
+    except BaseException:
+        print(json.dumps({"phase": "clients", "failed_after": cases, "checks": checks},
+                         default=str), file=sys.stderr, flush=True)
+        raise
+    finally:
+        for mt in mounts:
+            mt.unmount()
+        if gw_srv is not None:
+            gw_srv.stop()
+        for fsx in clients:
+            for cl in (*fsx.meta._packet_clients.values(), *fsx.data._packet_clients.values()):
+                cl.close()
+        codes = c.down()
+        left = fuse_mounts()
+        shutil.rmtree(workdir, ignore_errors=True)
+        qos.DEFAULT._tracker, qos.DEFAULT._levels, qos.DEFAULT._last_refresh = gate
+        for k, v in saved_env.items():
+            if v is not None:
+                os.environ[k] = v
+    checks["no_fuse_mount_left"] = not left
+    checks["watchdog_quiet"] = not fired.is_set()
+    checks["every_role_exited_0"] = all(rc == 0 for name, rc in codes.items()
+                                        if name not in killed)
+    return {"phase": "clients", "card": card, "seconds": time.perf_counter() - t_phase,
+            "kernel": " ".join(os.uname()[2:4]), "startup_s": startup_s,
+            "library_build_s": lib_build_s,
+            "cluster": {"roles": {r: len(a) for r, a in roles.items()}, "fuseclient": 1,
+                        "replicas": 3, "mp_count": 3, "dp_count": 4, "blob_size": blob_size,
+                        "codemode": blob_mode.name, "objects": objects, "object": obj_size,
+                        "files": files, "file_size": file_size, "writers": writers,
+                        "call": call_size, "tiered": tier, "fuse_files": fuse_files},
+            "cases": cases, "exit_codes": codes, "mounts_left": left,
+            "launches": launches, "checks": checks}
+
+
 def main() -> int:
     import torch
 
@@ -4393,7 +5010,20 @@ def main() -> int:
     if failed:
         raise AssertionError(f"fs_doors checks failed: {failed}")
 
-    # -- 20. the sharded step: 8 ranks over torch.distributed ----------------
+    # -- 20. the clients and mounts: the C ABI, the fsgateway, FUSE, console
+    # The roles are processes: A and B run in the codec role under the C
+    # ABI's codec calls, A in the access role under cfs_blob_*; the tiered
+    # volume's gateway and mount run here, and A encodes its tier PUTs and
+    # rebuilds its degraded cold reads in this process. Counts from 0.
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+    cli = clients_phase(dev, card)
+    emit(cli)
+    failed = [k for k, v in cli["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"clients checks failed: {failed}")
+
+    # -- 21. the sharded step: 8 ranks over torch.distributed ----------------
     # Built above, in this process: the ranks find the libraries and run
     # no nvcc. Every rank runs A and B on its own block; the collectives
     # go through gloo, which stages CUDA buffers through host memory and
@@ -4416,7 +5046,7 @@ def main() -> int:
     if sh_bad:
         raise AssertionError(f"sharded step checks failed: {sh_bad}")
 
-    # -- 21. the kernels' record --------------------------------------------
+    # -- 22. the kernels' record --------------------------------------------
     gf_main, crc_main = gf_results[0], crc_results[0]
     bm_main, probe_main = (next(x for x in bm_results
                                 if (x["case"], x["extract"], x["probe"], x["grid"]) == key)
@@ -4434,6 +5064,8 @@ def main() -> int:
          "fs_launches": fsp["launches"]["gf_apply"],
          "s3_launches": s3p["launches"]["gf_apply"],
          "fs_doors_launches": doors["launches"]["gf_apply"],
+         "clients_launches": {proc: counts["gf_apply"]
+                              for proc, counts in cli["launches"].items()},
          "equal": gf_main["equal"],
          "max_abs_err": gf_main["max_abs_err"], "ms": gf_main["ms"],
          "device_ms": gf_main["device_ms"], "plain_ms": gf_main["plain_ms"],
@@ -4443,7 +5075,9 @@ def main() -> int:
          "source": "cubefs_tpu_torch/csrc/crc32_blocks.cu",
          "replaces": "cubefs_tpu/ops/pallas_crc.py:44", "shape": crc_main["case"],
          "launches": launches["crc32_blocks"],
-         "service_launches": svc_launches["crc32_blocks"], "equal": crc_main["equal"],
+         "service_launches": svc_launches["crc32_blocks"],
+         "clients_launches": {"codec_role": cli["launches"]["codec_role"]["crc32_blocks"]},
+         "equal": crc_main["equal"],
          "max_abs_err": crc_main["max_abs_err"], "ms": crc_main["ms"],
          "device_ms": crc_main["device_ms"], "plain_ms": crc_main["plain_ms"],
          "bound_ms": crc_main["bound_ms"],

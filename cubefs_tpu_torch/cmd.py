@@ -5,19 +5,22 @@ on the ``role`` key of a JSON config,
 
     python -m cubefs_tpu_torch.cmd -c config.json
 
-for the file-system plane's roles (with its S3 gateway), the blob
-plane's and the codec sidecar. Each role builds its service object(s),
-serves them with the RPC layer (``utils/rpc.py``), registers with its
-control plane, and blocks.
+for the file-system plane's roles (with its S3 gateway, its native
+gateway, its FUSE mount and the console), the blob plane's and the codec
+sidecar. Each role builds its service object(s), serves them with the
+RPC layer (``utils/rpc.py``), registers with its control plane, and
+blocks.
 
 Config keys (JSON), with the reference's names and defaults:
-  role:         master | metanode | datanode | objectnode | flashnode |
-                flashgroupmanager | clustermgr | blobnode | proxy | access |
-                scheduler | codec
+  role:         master | metanode | datanode | objectnode | fuseclient |
+                fsgateway | console | flashnode | flashgroupmanager |
+                clustermgr | blobnode | proxy | access | scheduler | codec
   listen_host / listen_port: bind address (port 0: an ephemeral port)
   packet_port / read_port: a metanode's or datanode's binary packet
                 plane and native read plane (0: ephemeral), beside HTTP
-  master_addr / clustermgr_addr / proxy_addr: upstreams
+  master_addr / clustermgr_addr / proxy_addr / scheduler_addr: upstreams
+  vol / mountpoint: the volume a fuseclient mounts at ``mountpoint`` or
+                an fsgateway serves to the C ABI (``runtime/nativeclient``)
   replicas, allow_single_node, quota_sweep_interval, zone, rack, qos,
   disks:        the master's, metanode's and datanode's, as the reference's
   capacity_bytes / fgm_addr: a flashnode's cache budget (default 256 MiB)
@@ -51,16 +54,19 @@ Config keys (JSON), with the reference's names and defaults:
 
 A metanode and a datanode register with the master and heartbeat to it
 every 3 s, a flashnode to its flash group manager. The fuseclient and
-fsgateway roles wait for a later slice (ROADMAP.md §1 item 4), the
-console for another (item 5).
+fsgateway roles build their ``FileSystem`` with no blob client, as the
+reference's do: a tiered file reads as its size in zero bytes there.
 
 Each role prints ``[<role>] listening on host:port`` once it serves, the
-objectnode the reference's ``[objectnode] S3 on host:port``. On
+objectnode the reference's ``[objectnode] S3 on host:port``, the
+fsgateway ``[fsgateway] <vol> on host:port`` after it, and the
+fuseclient ``[fuseclient] <vol> mounted at <mountpoint>``. On
 SIGTERM or SIGINT it stops what it started beside its service
-(heartbeats, packet planes), the service (a master's quota sweeper,
-``stop``, then ``fsm_stop``, which stops a clustermgr's or master's raft
-node), the replicated queues a scheduler hosts, and then the server; an error while
-closing is printed and the process exits 1.
+(heartbeats, packet planes, a fuseclient's mount), the service (a
+master's quota sweeper, ``stop``, then ``fsm_stop``, which stops a
+clustermgr's or master's raft node), the replicated queues a scheduler
+hosts, and then the server; an error while closing is printed and the
+process exits 1.
 """
 
 from __future__ import annotations
@@ -246,6 +252,40 @@ def run_role(cfg: dict):
         print(f"[objectnode] S3 on {node.addr}", flush=True)
         return node, node
 
+    if role == "fuseclient":
+        from .fs.client import FileSystem
+        from .fs.fuse import mount as fuse_mount
+
+        master = rpc.Client(cfg["master_addr"])
+        view = master.call("client_view", {"name": cfg["vol"]})[0]["volume"]
+        m = fuse_mount(FileSystem(view, pool, master_addr=cfg["master_addr"]),
+                       cfg["mountpoint"])
+        m.role_closers = [m.unmount]
+        print(f"[fuseclient] {cfg['vol']} mounted at {cfg['mountpoint']}", flush=True)
+        return m, m
+
+    if role == "fsgateway":
+        from .fs.client import FileSystem
+        from .fs.fsgateway import FsGateway
+
+        master = rpc.Client(cfg["master_addr"])
+        view = master.call("client_view", {"name": cfg["vol"]})[0]["volume"]
+        svc = FsGateway(FileSystem(view, pool, master_addr=cfg["master_addr"]))
+        srv = _serve(rpc.expose(svc), cfg)
+        print(f"[fsgateway] {cfg['vol']} on {srv.addr}", flush=True)
+        return srv, svc
+
+    if role == "console":
+        from .fs.console import Console
+
+        svc = Console(master_addr=cfg.get("master_addr"),
+                      clustermgr_addr=cfg.get("clustermgr_addr"),
+                      scheduler_addr=cfg.get("scheduler_addr"),
+                      host=cfg.get("listen_host", "127.0.0.1"),
+                      port=int(cfg.get("listen_port", 0))).start()
+        print(f"[console] listening on {svc.addr}", flush=True)
+        return svc, svc
+
     if role == "clustermgr":
         from .blob.clustermgr import ClusterMgr
 
@@ -367,7 +407,7 @@ def shutdown(srv, svc) -> int:
     steps = (list(getattr(svc, "role_closers", ()))
              + [getattr(svc, n, None) for n in ("stop_quota_sweeper", "stop", "fsm_stop")]
              + [q.stop for q in queues if callable(getattr(q, "stop", None))])
-    for step in steps + [srv.stop]:
+    for step in steps + [getattr(srv, "stop", None)]:
         if not callable(step):
             continue
         try:

@@ -12,7 +12,8 @@ Topology JSON (all keys optional), the reference's keys:
    "volume": {"name": "vol1", "mp_count": 3, "dp_count": 4},
    "blobnodes": 6, "disks_per_blobnode": 9, "blob_azs": 3,
    "access": true, "blob_size": 8388608, "codec": false,
-   "objectnode": false, "bucket": "bkt", "users": [...]}
+   "objectnode": false, "bucket": "bkt", "users": [...],
+   "fsgateway": false, "console": false}
 
 and the port's own:
   "proxy": false       a proxy role, whose address access is given
@@ -32,10 +33,12 @@ round-robin: an int yields AZ names az0..azN-1, a list supplies the
 names. The objectnode (the S3 gateway) serves the volume as bucket
 ``bucket`` with the ``users`` of its role config, and needs the
 file-system plane; it prints the reference's ``S3 on host:port``, which
-the launcher takes as its address line. The fsgateway and console are not
-ported: a topology that asks for either raises ``NotImplementedError``
-(ROADMAP.md §1 items 4 and 5). The launcher starts no flash role, as the
-reference's does not: ``python -m cubefs_tpu_torch.cmd`` serves them.
+the launcher takes as its address line. The fsgateway serves the volume
+to the C ABI and needs the file-system plane too; the console reads the
+master, and the clustermgr when there is one. The launcher starts no
+flash role and no fuseclient, as the reference's does not: ``python -m
+cubefs_tpu_torch.cmd`` serves them, and ``Proc`` takes a fuseclient's
+``mounted at <mountpoint>`` line as its address line.
 """
 
 from __future__ import annotations
@@ -49,9 +52,11 @@ import sys
 import threading
 import time
 
-UNPORTED = {"fsgateway": 4, "console": 5}  # role -> its ROADMAP.md §1 item
-# the lines a role prints once it serves: every role's, and the objectnode's
+# the lines a role prints once it serves: every role's, the objectnode's,
+# and the fsgateway's and a fuseclient's own (a mount's address is its
+# mountpoint); the address is the line's last word
 READY = ("listening on", "S3 on")
+ROLE_READY = {"fsgateway": " on ", "fuseclient": " mounted at "}
 # the directory that holds the package: spawned roles import it from there
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -82,7 +87,8 @@ class Proc:
         deadline = time.time() + timeout
         while time.time() < deadline:
             for line in self._log().splitlines():
-                if any(mark in line for mark in READY):
+                own = line.startswith(f"[{self.role}] ") and ROLE_READY.get(self.role)
+                if any(mark in line for mark in READY) or (own and own in line):
                     self.addr = line.strip().rsplit(" ", 1)[-1]
                     return self.addr
             if self.p.poll() is not None:
@@ -93,14 +99,10 @@ class Proc:
 
 class Cluster:
     def __init__(self, topo: dict, workdir: str, timeout: float = 120.0):
-        asked = [k for k in UNPORTED if topo.get(k)]
-        if asked:
-            raise NotImplementedError("; ".join(
-                f"role {k!r} is not ported yet (ROADMAP.md §1 item {UNPORTED[k]})"
-                for k in asked))
-        if topo.get("objectnode") and not (topo.get("metanodes") or topo.get("datanodes")):
-            raise ValueError("the objectnode serves a volume of the file-system plane: "
-                             "give metanodes and datanodes")
+        for gw in ("objectnode", "fsgateway"):
+            if topo.get(gw) and not (topo.get("metanodes") or topo.get("datanodes")):
+                raise ValueError(f"the {gw} serves a volume of the file-system plane: "
+                                 "give metanodes and datanodes")
         self.topo = topo
         self.workdir = workdir
         self.timeout = timeout
@@ -166,6 +168,7 @@ class Cluster:
         engine = {"ec_engine": t["ec_engine"]} if t.get("ec_engine") else {}
         if t.get("metanodes") or t.get("datanodes"):
             self._fs_up()
+        cm = None
         if t.get("blobnodes"):
             cm = self._spawn("clustermgr", {
                 "allow_colocated_units": t.get("blobnodes", 1) == 1,
@@ -205,6 +208,16 @@ class Cluster:
                 "users": t.get("users", [])})
         if t.get("codec"):
             self._spawn("codec", dict(engine))
+        if t.get("fsgateway"):
+            self._spawn("fsgateway", {"master_addr": self.state["roles"]["master"][0],
+                                      "vol": self.state["volume"]})
+        if t.get("console"):
+            console_cfg = {}
+            if "master" in self.state["roles"]:
+                console_cfg["master_addr"] = self.state["roles"]["master"][0]
+            if cm is not None:
+                console_cfg["clustermgr_addr"] = cm
+            self._spawn("console", console_cfg)
         with open(os.path.join(self.workdir, "cluster.json"), "w") as f:
             json.dump(self.state, f, indent=2)
         return self.state

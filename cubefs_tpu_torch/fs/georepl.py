@@ -37,10 +37,8 @@ Raft-replicated hosts are refused: raft is the intra-region replication
 plane, geo ships standalone-FSM clusters (one stream per partition, no
 second consensus inside a region's group).
 
-The port's copy of ``cubefs_tpu/fs/georepl.py``. The snapshot pull
-opens ``utils/packet.PacketClient`` itself, where the reference's goes
-through ``sdk.clients.WireClient``, a shell over it (the port has no
-``sdk/clients.py`` yet): the frames on the wire are the same.
+The port's copy of ``cubefs_tpu/fs/georepl.py``. The snapshot pull goes
+through ``sdk.clients.WireClient``, as in the reference.
 """
 
 from __future__ import annotations
@@ -377,7 +375,8 @@ class GeoGateway:
         with self._lock:
             wc = self._wires.get(addr)
             if wc is None:
-                wc = packet.PacketClient(addr, timeout=30.0)
+                from ..sdk.clients import WireClient
+                wc = WireClient(addr)
                 self._wires[addr] = wc
             return wc
 

@@ -2434,10 +2434,9 @@ class MetaNode:
         with self._lock:
             wc = self._wires.get(addr)
             if wc is None:
-                from ..utils import packet
+                from ..sdk.clients import WireClient
 
-                # the reference's sdk WireClient is a shell over this
-                wc = packet.PacketClient(addr, timeout=30.0)
+                wc = WireClient(addr)
                 self._wires[addr] = wc
             return wc
 

@@ -12,9 +12,7 @@ CachedReader: ExtentClient wrapper that consults the ring before the
 datanode and populates on miss.
 
 The port's copy of ``cubefs_tpu/fs/remotecache.py``. A flashnode is
-reached through ``_FlashClient``, the reference's ``sdk.clients.
-FlashClient`` (the port has no ``sdk/clients.py`` yet): the same calls
-on the same wire.
+reached through ``sdk.clients.FlashClient``, as in the reference.
 """
 
 from __future__ import annotations
@@ -293,27 +291,6 @@ class FlashGroupManager(ReplicatedFsm):
                 "epoch": epoch}
 
 
-class _FlashClient:
-    """One flashnode's cache ops over an RPC client (the reference's
-    ``sdk.clients.FlashClient``)."""
-
-    def __init__(self, client):
-        self._c = client
-
-    def cache_get(self, key: str) -> bytes:
-        return self._c.call("cache_get", {"key": key})[1]
-
-    def cache_put(self, key: str, data: bytes,
-                  path: str | None = None) -> None:
-        args = {"key": key}
-        if path is not None:
-            args["path"] = path  # request family, for burn-aware eviction
-        self._c.call("cache_put", args, data)
-
-    def cache_delete(self, key: str) -> bool:
-        return self._c.call("cache_delete", {"key": key})[0]["deleted"]
-
-
 class _Flight:
     """One in-flight datanode fill: followers park on the event and
     reuse the leader's bytes (singleflight)."""
@@ -366,8 +343,10 @@ class CachedReader:
 
     def _flash_client(self, addr: str):
         # NodePool.get already caches one Client per addr and stays
-        # current across rebinds; _FlashClient is a stateless wrapper
-        return _FlashClient(self.nodes.get(addr))
+        # current across rebinds; FlashClient is a stateless wrapper
+        from ..sdk.clients import FlashClient
+
+        return FlashClient(self.nodes.get(addr))
 
     @staticmethod
     def _key(dp_id: int, extent_id: int, block: int) -> str:

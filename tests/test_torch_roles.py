@@ -13,11 +13,13 @@ blobnode processes. Two clusters of processes are spawned, each with a
 timeout.
 """
 
+import ctypes
 import hashlib
 import http.client
 import json
 import os
 import subprocess
+import sys
 import time
 import types
 
@@ -746,24 +748,55 @@ S3_USERS = [{"access_key": OWNER["access_key"], "secret_key": OWNER["secret_key"
             {"access_key": STRANGER["access_key"], "secret_key": STRANGER["secret_key"]}]
 
 
+# a fuseclient role mounts through the kernel: it needs /dev/fuse and root
+FUSE_OK = os.path.exists("/dev/fuse") and os.geteuid() == 0
+
+
+def _mounts_under(root) -> list[str]:
+    with open("/proc/mounts") as f:
+        return [ln.split()[1] for ln in f if ln.split()[1].startswith(os.path.abspath(root))]
+
+
+def _detach(mountpoints) -> None:
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    for mnt in mountpoints:
+        libc.umount2(mnt.encode(), 2)  # MNT_DETACH
+
+
 @pytest.fixture(scope="module")
 def launched_fs(tmp_path_factory):
     """The launcher's file-system plane with its cold tier's blob plane on
     the CPU: a master, 3 metanodes, 3 datanodes (replicas 3) and a volume
     of 2 meta and 2 data partitions, a clustermgr and 4 blobnodes x 3
-    disks, and the objectnode serving the volume as bucket ``bkt`` to an
-    owner and a stranger, each a process of its own."""
+    disks, the objectnode serving the volume as bucket ``bkt`` to an
+    owner and a stranger, the fsgateway and the console, each a process of
+    its own; and, where the kernel allows, a fuseclient role mounting the
+    volume at ``<workdir>/mnt``. No mount under the workdir outlives the
+    module: one left after the roles stop is detached, and fails it."""
     wd = tmp_path_factory.mktemp("launched_fs")
     c = deploy.Cluster({"metanodes": 3, "datanodes": 3, "replicas": 3,
                         "volume": {"name": "fsvol", "mp_count": 2, "dp_count": 2},
                         "blobnodes": 4, "disks_per_blobnode": 3, "access": False,
                         "objectnode": True, "bucket": "bkt", "users": S3_USERS,
+                        "fsgateway": True, "console": True,
                         "device": "cpu"}, str(wd), timeout=120.0)
     codes = {}
     try:
-        yield c, c.up(), wd, codes
+        state = c.up()
+        if FUSE_OK:
+            fc = deploy.Proc("fuseclient", {"role": "fuseclient", "master_addr":
+                                            state["roles"]["master"][0], "vol": "fsvol",
+                                            "mountpoint": str(wd / "mnt")}, str(wd))
+            c.procs.append(fc)
+            assert fc.wait_addr(timeout=120.0) == str(wd / "mnt")
+        yield c, state, wd, codes
     finally:
         codes.update(c.down())
+        left = _mounts_under(wd)
+        _detach(left)
+        assert not left, left
 
 
 def test_launched_fs_plane_round_trips_tiers_and_exits_0(launched_fs, still_qos, monkeypatch):
@@ -780,7 +813,7 @@ def test_launched_fs_plane_round_trips_tiers_and_exits_0(launched_fs, still_qos,
         assert json.load(f) == state
     assert {r: len(a) for r, a in state["roles"].items()} == {
         "master": 1, "metanode": 3, "datanode": 3, "clustermgr": 1, "blobnode": 4,
-        "objectnode": 1}
+        "objectnode": 1, "fsgateway": 1, "console": 1}
     assert state["volume"] == "fsvol"
     view = rpc.call(state["roles"]["master"][0], "client_view", {"name": "fsvol"})[0]["volume"]
     assert len(view["mps"]) == 2 and len(view["dps"]) == 2
@@ -907,24 +940,129 @@ def test_tiered_object_through_either_objectnode_role(launched_fs, still_qos, mo
             cl.close()
 
 
+def test_tiered_file_through_either_fsgateway_and_fuseclient_role(launched_fs, still_qos,
+                                                                   monkeypatch):
+    """The limit shared with the reference, through the native and kernel
+    doors: the fsgateway and fuseclient roles build their ``FileSystem``
+    with no blob client, so a tiered file reads as its size in zero bytes,
+    and a hot file reads back. The port's launched roles and the
+    reference's (``python -m cubefs_tpu.cmd``, on the same master) give the
+    same bytes through the C ABI (``cfs_pread``, the port's library) and
+    through the kernel (a read in a child process under ``timeout=``)."""
+    from cubefs_tpu.deploy import cluster as ref_deploy
+    from cubefs_tpu_torch.blob.sdk import BlobClient
+    from cubefs_tpu_torch.fs.client import FileSystem
+    from cubefs_tpu_torch.fs.lcnode import LcNode, LifecycleRule
+    from cubefs_tpu_torch.runtime import nativeclient
+
+    c, state, wd, _ = launched_fs
+    master = state["roles"]["master"][0]
+    view = rpc.call(master, "client_view", {"name": "fsvol"})[0]["volume"]
+    pool = rpc.NodePool()
+    monkeypatch.setenv("CUBEFS_TIERING", "1")
+    fs = FileSystem(view, pool, blob_client=BlobClient(
+        state["roles"]["clustermgr"][0], pool, access.AccessConfig(blob_size=BLOB, device="cpu")))
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")  # the reference's roles inherit it
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    ref_roles = []
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                fs.mkdir("/doors")
+                break
+            except Exception:
+                assert time.monotonic() < deadline
+                time.sleep(0.1)
+        hot, cold = (payload(np.random.default_rng(37), n) for n in (60_001, 200_003))
+        fs.write_file("/doors/hot.bin", hot)
+        ino = fs.write_file("/doors/cold.bin", cold)
+        fs.meta.set_attr(ino, mtime=time.time() - 7200)
+        lc = LcNode(fs, engine=fs.tiering)
+        lc.set_rules([LifecycleRule("tier", prefix="/doors/cold", transition_after_s=3600)])
+        assert lc.scan_once().transitioned == 1
+        assert fs.read_file("/doors/cold.bin") == cold  # this client has the blob plane
+        gateways = {"port": state["roles"]["fsgateway"][0]}
+        mounts = {"port": str(wd / "mnt")} if FUSE_OK else {}
+        ref_roles.append(ref_deploy.Proc("fsgateway", {
+            "role": "fsgateway", "name": "ref-fsgateway", "master_addr": master,
+            "vol": "fsvol"}, str(wd)))
+        if FUSE_OK:
+            ref_roles.append(ref_deploy.Proc("fuseclient", {
+                "role": "fuseclient", "name": "ref-fuseclient", "master_addr": master,
+                "vol": "fsvol", "mountpoint": str(wd / "ref-mnt")}, str(wd)))
+            mounts["ref"] = str(wd / "ref-mnt")
+        gateways["ref"] = ref_roles[0].wait_addr(timeout=120.0)
+        lib = nativeclient.load()
+        answers = {}
+        for name, addr in gateways.items():
+            host, p = addr.rsplit(":", 1)
+            h = lib.cfs_mount(host.encode(), int(p))
+            assert h, lib.cfs_last_error()
+            try:
+                got = []
+                for path, n in ((b"/doors/cold.bin", len(cold)), (b"/doors/hot.bin", len(hot))):
+                    fd = lib.cfs_open(h, path, 0, 0)
+                    buf = ctypes.create_string_buffer(n + 16)
+                    n_read = lib.cfs_pread(h, fd, buf, n + 16, 0)
+                    got.append(buf.raw[:n_read])
+                    lib.cfs_close(h, fd)
+                answers["gateway", name] = got
+            finally:
+                lib.cfs_unmount(h)
+        if FUSE_OK:
+            # the reference's Proc takes no fuseclient line: read its log
+            deadline = time.monotonic() + 120
+            while "] fsvol mounted at" not in open(ref_roles[1].log_path).read():
+                assert ref_roles[1].p.poll() is None and time.monotonic() < deadline
+                time.sleep(0.1)
+            for name, mnt in mounts.items():
+                run = subprocess.run(
+                    [sys.executable, "-c", "import sys; [sys.stdout.write(open(p, 'rb')"
+                     ".read().hex() + ' ') for p in sys.argv[1:]]",
+                     f"{mnt}/doors/cold.bin", f"{mnt}/doors/hot.bin"],
+                    capture_output=True, text=True, timeout=60)
+                assert run.returncode == 0, run.stderr
+                answers["mount", name] = [bytes.fromhex(x) for x in run.stdout.split()]
+        want = [bytes(len(cold)), hot]
+        assert answers and all(v == want for v in answers.values()), \
+            {k: [len(x) for x in v] for k, v in answers.items()}
+        assert len(answers) == (4 if FUSE_OK else 2)
+    finally:
+        for role in ref_roles:
+            role.p.terminate()
+        for role in ref_roles:
+            try:
+                assert role.p.wait(30) == 0  # a fuseclient unmounts on SIGTERM
+            except subprocess.TimeoutExpired:
+                role.p.kill()
+                role.p.wait(30)
+        for cl in (*fs.meta._packet_clients.values(), *fs.data._packet_clients.values()):
+            cl.close()
+    assert not _mounts_under(wd / "ref-mnt")
+
+
 def test_launched_fs_roles_exit_0_on_sigterm(launched_fs):
-    """Every role of the launched planes stops on SIGTERM with exit 0."""
-    c, _, _, codes = launched_fs
+    """Every role of the launched planes stops on SIGTERM with exit 0, a
+    fuseclient after it unmounts."""
+    c, _, wd, codes = launched_fs
     codes.update(c.down())
-    assert len(codes) == 13 and all(rc == 0 for rc in codes.values()), codes
+    assert len(codes) == (16 if FUSE_OK else 15) and all(rc == 0 for rc in codes.values()), codes
+    assert not _mounts_under(wd)
 
 
 def test_launcher_refuses_file_system_roles(tmp_path):
-    """The roles of the file-system plane still to port (fsgateway,
-    console) are refused before anything starts, and so is an objectnode
-    with no file-system plane to serve."""
-    for topo, item in (({"fsgateway": True}, 4), ({"fsgateway": True, "metanodes": 3}, 4),
-                       ({"console": True, "datanodes": 1, "blobnodes": 1}, 5)):
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md §1 item {item}"):
+    """A gateway of the file-system plane (objectnode, fsgateway) is
+    refused before anything starts when the topology has no file-system
+    plane to serve; the fsgateway and console start beside one (the
+    ``launched_fs`` cluster)."""
+    for topo in ({"objectnode": True, "blobnodes": 4}, {"fsgateway": True},
+                 {"fsgateway": True, "console": True, "blobnodes": 1}):
+        with pytest.raises(ValueError, match="file-system plane"):
             deploy.Cluster(topo, str(tmp_path))
-    with pytest.raises(ValueError, match="file-system plane"):
-        deploy.Cluster({"objectnode": True, "blobnodes": 4}, str(tmp_path))
     assert not os.listdir(tmp_path)
+    deploy.Cluster({"fsgateway": True, "console": True, "metanodes": 3}, str(tmp_path / "w"))
 
 
 # ---------------- HTTP-stitched traces (tests/test_trace_obs.py) against the port ----------------

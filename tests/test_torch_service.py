@@ -627,8 +627,11 @@ def test_cmd_serves_the_codec_role_and_stops_on_sigterm(tmp_path):
 
 
 def test_cmd_refuses_other_roles_and_engines():
-    with pytest.raises(SystemExit, match="unknown role 'fsgateway'"):
-        cmd.run_role({"role": "fsgateway"})  # not ported yet (ROADMAP.md §1 item 4)
+    from cubefs_tpu import cmd as ref_cmd
+
+    for run_role in (cmd.run_role, ref_cmd.run_role):  # a role neither package has
+        with pytest.raises(SystemExit, match="^unknown role 'cfs-bogus'$"):
+            run_role({"role": "cfs-bogus"})
     with pytest.raises(KeyError, match="unknown ec engine 'tpu'"):
         cmd.run_role({"role": "codec", "ec_engine": "tpu", "device": "cpu"})
 
