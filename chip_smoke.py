@@ -65,7 +65,7 @@ units, and the worker rebuilds them; read-repair, with and without
 ``CUBEFS_VERIFY_READS``, and the scrub's doors (``CUBEFS_SCRUB``, a
 brownout, ``CUBEFS_QOS``). Then the metadata shards (phase
 ``shardnode``, host only): 3 shardnodes on raft over the native KV store
-take 8,192 items from 8 clients, split a shard, lose a node whose
+take 4,096 items from 8 clients, split a shard, lose a node whose
 replicas the scheduler's shard tasks move to a spare, and restart from
 their directories. Then the file-system plane (phase ``fs``): the
 launcher starts a master, 3 metanodes, 4 datanodes (replicas 3) and a
@@ -80,8 +80,8 @@ blobnode process stopped), holds their parity against the plain version,
 re-heats one, reaps, and reads every file again with a datanode process
 stopped. Then the S3 gateway (phase ``s3``): the same planes and the
 ``objectnode`` role, every request SigV4-signed over ``http.client``:
-16 objects of 64 MiB from 4 threads read back whole and in ranges, a
-256 MiB multipart upload in 32 parts of 8 MiB, 2,048 small objects PUT,
+8 objects of 64 MiB from 4 threads read back whole and in ranges, a
+256 MiB multipart upload in 32 parts of 8 MiB, 1,024 small objects PUT,
 HEAD and GET from 8 threads, listed in pages of 1,000 and batch-deleted,
 three refusals, and 4 objects tiered by the bucket's own lifecycle rule
 (kernel A encodes each tier PUT in this process), their parity held
@@ -104,10 +104,19 @@ port's C library (``runtime/nativeclient``, built here by g++) drives the
 codec role (A and B), the access role (64 MiB objects, A on the PUT
 stacks and the degraded GETs) and the gateway (``tests/c/fs_abi_test.c``
 compiled by gcc, 1 GiB in 1 MiB ``cfs_pwrite`` calls from 4 threads), a
-gateway and a FUSE mount in this process serve 4 tiered files cold
+gateway and a FUSE mount in this process serve 2 tiered files cold
 (A rebuilds with a blobnode process stopped), and the typed SDK clients
-drive the master, clustermgr and console. Each phase prints one JSON
-line; any failure, in any rank, raises.
+drive the master, clustermgr and console. Then the operator plane and
+the tools (phase ``operators``): phase ``fs``'s planes beside the blob
+roles, driven through the CLI (``python -m cubefs_tpu_torch.cli``) as
+operators run it: a volume created, 64 MiB files and objects in and out,
+the views, a ``scrub run --full`` on a scheduler role that finds 4 bits
+flipped on the blobnodes' disks (A its parity recompute, the repair
+worker here rebuilding each unit), ``fsck`` finding and healing a
+replica mismatch and the FS scrubber a second, a snapshot restored to
+the live state, the dial prober and the blob bench, and in this process
+``bench_codec``'s batched and repair legs and ``tier_ab`` on the card.
+Each phase prints one JSON line; any failure, in any rank, raises.
 
 The last lines are the kernels' record, the card's name and power limit
 as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -177,24 +186,26 @@ ROLES_PUTS = 8  # phase roles: 64 MiB objects PUT, read back, read degraded
 RAFT_PUTS = 4  # phase raft: 64 MiB objects PUT on each side of a clustermgr leader kill
 INTEGRITY_OBJECTS = 16  # phase integrity: 64 MiB objects, 1 GiB of user data
 INTEGRITY_GETS = 8  # foreground GETs alone and under a full scrub pass
-# phase shardnode: 8 MiB of 1 KiB items (cut from 16,384 items when phase
-# clients was added, to keep the whole script well inside its time limit)
-SN_ITEMS, SN_VALUE, SN_THREADS = 8192, 1024, 8
+# phase shardnode: 4 MiB of 1 KiB items (cut from 16,384 items when phase
+# clients was added, and from 8,192 when phase operators was: the script
+# ran 1,130 s with it, its limit 1,200)
+SN_ITEMS, SN_VALUE, SN_THREADS = 4096, 1024, 8
 # phase fs: 16 files of 64 MiB from 4 writers (1 GiB of user data, 3 GiB on
-# the datanodes at 3 replicas), 8 threads x 256 files of 4 KiB (cut from
+# the datanodes at 3 replicas), 8 threads x 128 files of 4 KiB (cut from
 # 1,024 a thread: 8,192 creates, renames and stats took 243 s on the card's
-# host), 4 files tiered
+# host; and from 256 when phase operators was added), 4 files tiered
 FS_FILES, FS_FILE, FS_WRITERS = 16, 64 * MIB, 4
-FS_META_THREADS, FS_META_FILES, FS_META_SIZE = 8, 256, 4096
+FS_META_THREADS, FS_META_FILES, FS_META_SIZE = 8, 128, 4096
 FS_TIER = 4
-# phase s3: the objectnode role over the same planes; 16 objects of 64 MiB
-# from 4 threads (1 GiB), one multipart object of 256 MiB in 32 parts of
-# 8 MiB (the AWS CLI's multipart_chunksize), 8 threads x 256 objects of
-# 4 KiB (phase fs's cut), listings and DeleteObjects in pages of 1,000
-# (S3's default max-keys and its batch cap), 4 objects tiered
-S3_OBJECTS, S3_OBJECT, S3_WRITERS = 16, 64 * MIB, 4
+# phase s3: the objectnode role over the same planes; 8 objects of 64 MiB
+# from 4 threads (cut from 16 when phase operators was added), one
+# multipart object of 256 MiB in 32 parts of 8 MiB (the AWS CLI's
+# multipart_chunksize), 8 threads x 128 objects of 4 KiB (phase fs's cut),
+# listings and DeleteObjects in pages of 1,000 (S3's default max-keys and
+# its batch cap), 4 objects tiered
+S3_OBJECTS, S3_OBJECT, S3_WRITERS = 8, 64 * MIB, 4
 S3_MULTIPART, S3_PART = 256 * MIB, 8 * MIB
-S3_SMALL_THREADS, S3_SMALL, S3_SMALL_SIZE = 8, 256, 4096
+S3_SMALL_THREADS, S3_SMALL, S3_SMALL_SIZE = 8, 128, 4096
 S3_PAGE = 1000
 S3_TIER = 4
 # phase fs_doors: phase fs's cluster with a flash group manager and two flash
@@ -213,11 +224,27 @@ GEO_RECORDS = 16384
 # 1,024 CRC blocks of 128 KiB, the codec service phase's sizes), against the
 # access role (8 objects of 64 MiB) and against the fsgateway (16 files of
 # 64 MiB from 4 threads in 1 MiB calls, phase fs's volume of user data;
-# the first 4 tiered); the FUSE mount copies 4 files of 64 MiB in and out
+# the first 2 tiered); the FUSE mount copies 2 files of 64 MiB in and out
+# (tiered and FUSE files cut from 4 when phase operators was added: each
+# 64 MiB through the card's runsc FUSE took 9-11 s)
 CLIENT_OBJECTS, CLIENT_OBJECT = 8, 64 * MIB
-CLIENT_FILES, CLIENT_FILE, CLIENT_WRITERS, CLIENT_CALL, CLIENT_TIER = 16, 64 * MIB, 4, MIB, 4
-CLIENT_FUSE_FILES = 4
+CLIENT_FILES, CLIENT_FILE, CLIENT_WRITERS, CLIENT_CALL, CLIENT_TIER = 16, 64 * MIB, 4, MIB, 2
+CLIENT_FUSE_FILES = 2
 CLIENT_CRC_BLOCKS, CLIENT_CRC_BLOCK = 1024, 128 << 10
+# phase operators: phase fs's file-system plane and the blob roles of phase
+# roles, driven through the operator's CLI (python -m cubefs_tpu_torch.cli):
+# 4 files of 64 MiB through its fs group, 4 objects of 64 MiB through its
+# blob group (cut from 8), 4 bitflips for the scheduler role's scrub, the
+# dial prober, the blob bench at 16 x 8 MiB from 4 threads, bench_codec's
+# run_ab at 32 submitters (its acceptance shape; 50 stripes each, cut from
+# its default of 200) and run_repair_ab at EC6P6MSR, and tier_ab's legs at
+# their own sizes. The cuts: the phase took 195 s alone at the full depth,
+# and the script 1,130 s at 8 objects and 100 stripes (its limit 1,200)
+OPS_FILES, OPS_FILE = 4, 64 * MIB
+OPS_OBJECTS, OPS_OBJECT = 4, 64 * MIB
+OPS_BITFLIPS = 4
+OPS_BENCH_COUNT, OPS_BENCH_SIZE, OPS_BENCH_CONC = 16, 8 * MIB, 4
+OPS_SUBMITTERS, OPS_ITERS, OPS_REPAIR_STRIPES = 32, 50, 96
 LAUNCH_B = 'cubefs_codec_kernel_launches_total{kernel="crc32_blocks"}'
 S3_OWNER = {"access_key": "AKIDSMOKEOWNER000001", "secret_key": "smoke-owner-secret-key"}
 S3_STRANGER = {"access_key": "AKIDSMOKESTRANGER001", "secret_key": "smoke-stranger-secret"}
@@ -283,6 +310,16 @@ def rpc_post(addr: str, method: str, args: dict, body: bytes = b"",
         return resp.status, json.loads(resp.headers.get("X-Rpc-Resp") or "{}"), payload
     finally:
         conn.close()
+
+
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1, for a role that needs a static one
+    (a raft member names itself)."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
 
 
 def scrape(addr: str) -> dict[str, float]:
@@ -1163,8 +1200,6 @@ def raft_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = RAFT_PUTS,
     come from its ``/metrics`` before and after each case. ``device`` is
     the roles' (None: the card). Returns the record with ``checks`` and
     ``launches`` (the access process's)."""
-    import socket
-
     from cubefs_tpu_torch.codec import codemode as cm
     from cubefs_tpu_torch.deploy.cluster import Proc
 
@@ -1174,11 +1209,6 @@ def raft_phase(dev, card: str, *, put: int = BLOB_PUT, n_puts: int = RAFT_PUTS,
     cases: dict[str, dict] = {}
     procs: dict[str, Proc] = {}  # live roles by name
     codes: dict[str, int | None] = {}
-
-    def free_port() -> int:
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            return s.getsockname()[1]
 
     def start(name: str, role: str, cfg: dict) -> Proc:
         cfg = dict(cfg, name=name, audit_dir=os.path.join(workdir, "audit", name))
@@ -1755,11 +1785,6 @@ def shardnode_phase(dev, card: str, *, items: int = SN_ITEMS, value: int = SN_VA
     leaders: dict[int, str] = {}
     cases: dict[str, dict] = {}
     hb_stop = threading.Event()
-
-    def free_port() -> int:
-        with socket.socket() as s_:
-            s_.bind(("127.0.0.1", 0))
-            return s_.getsockname()[1]
 
     addrs = [f"127.0.0.1:{free_port()}" for _ in range(4)]  # 3 replicas and a spare
     replicas, spare = addrs[:3], addrs[3]
@@ -2529,7 +2554,7 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
             "equal": st_g == 200 and got == whole}
         del whole, got, part_etags
 
-        # -- small objects: 8 threads x 256 of 4 KiB ----------------------------------
+        # -- small objects: 8 threads x 128 of 4 KiB ----------------------------------
         n_small = small_threads * small
         bodies = [rng.integers(0, 256, small_size, dtype=np.uint8).tobytes()
                   for _ in range(small_threads)]
@@ -3956,6 +3981,570 @@ print(json.dumps(out))
             "launches": launches, "checks": checks}
 
 
+def flip_shard_byte(disk_path: str, chunk_id: int, shard: bytes) -> tuple[str, int]:
+    """Flip one bit of a stored shard in its chunk's data file on disk
+    (the chunk store writes a shard's payload contiguously, behind its
+    CRC): the file and offset flipped. The window searched for must occur
+    exactly once."""
+    mid = len(shard) // 2
+    window = shard[mid:mid + 256]
+    hits = []
+    prefix = f"chunk_{chunk_id:016x}"
+    for name in sorted(os.listdir(disk_path)):
+        if not (name.startswith(prefix) and name.endswith(".data")):
+            continue
+        path = os.path.join(disk_path, name)
+        with open(path, "rb") as f:
+            raw = f.read()
+        at = raw.find(window)
+        while at >= 0:
+            hits.append((path, at))
+            at = raw.find(window, at + 1)
+    if len(hits) != 1:
+        raise AssertionError(f"shard window found {len(hits)} times in {disk_path}")
+    path, at = hits[0]
+    with open(path, "r+b") as f:
+        f.seek(at)
+        b = f.read(1)
+        f.seek(at)
+        f.write(bytes([b[0] ^ 0x01]))
+    return path, at
+
+
+def operators_phase(dev, card: str, *, files: int = OPS_FILES, file_size: int = OPS_FILE,
+                    objects: int = OPS_OBJECTS, obj_size: int = OPS_OBJECT,
+                    bitflips: int = OPS_BITFLIPS, bench_count: int = OPS_BENCH_COUNT,
+                    bench_size: int = OPS_BENCH_SIZE, bench_conc: int = OPS_BENCH_CONC,
+                    submitters: int = OPS_SUBMITTERS, iters: int = OPS_ITERS,
+                    repair_stripes: int = OPS_REPAIR_STRIPES, tier_files: int | None = None,
+                    blob_size: int = BLOB, device: str | None = None) -> dict:
+    """Phase ``operators``: the operator plane and the blob and codec tools.
+    The launcher starts phase ``fs``'s planes (a master, 3 metanodes, 4
+    datanodes at replicas 3) and the blob roles (a clustermgr, 6
+    blobnodes x 3 disks, a proxy and access on engine ``cuda``, ``blob_size``
+    blobs, EC12P4), each a ``python -m cubefs_tpu_torch.cmd`` process.
+
+    Every step but the last three goes through ``python -m
+    cubefs_tpu_torch.cli`` subprocesses, as operators run it, and each holds
+    its bytes exactly: ``cluster stat``, ``vol create opsvol``; ``fs
+    mkdir/put/get/ls/stat/mv/rm`` on ``files`` files of ``file_size``
+    bytes; ``blob put/get`` of ``objects`` objects of ``obj_size`` bytes
+    (A's launches read from the access process's ``/metrics``: one PUT
+    stack each). Then the scheduler role, started on a copy of the
+    clustermgr's state with engine ``cuda`` and its failure detector's task
+    kinds switched off (``tasks_off``: no blobnode heartbeats to that copy;
+    the role's clustermgr is standalone, as the reference's), and the
+    views: ``blob vols/disks``, ``node list``, ``tasks list/stats``, ``cm
+    config-list``, ``mq status`` and ``metrics codec/repair/integrity/
+    write-path/wire/raw``, each JSON with the traffic's counters non-zero.
+    ``scrub run --full`` with ``bitflips`` bits flipped in stored shards on
+    the blobnodes' disks (2 data units, 2 parity units, CRC-refused on
+    read): every one queued, rebuilt by a ``RepairWorker`` here (engine
+    ``cuda``), the new units written back to the clustermgr, a second pass
+    clean, the objects read back equal, A's launches from the scheduler's
+    ``/metrics``, and the stripes and bytes each pass staged.
+
+    In this process: ``fsck`` of the volume clean; one extent replica
+    rewritten on a datanode (its ``write_replica`` route, the follower leg)
+    reported, healed by ``fsck(heal=True)``, then clean; an ``FsScrubber``
+    full pass heals a second one. ``tool/snapshot``: export, verify and
+    restore of ``opsvol``, the restored partitions' state equal to the live
+    one. ``DialProber.probe_once()`` and ``bench_tool.run`` (``bench_count``
+    x ``bench_size`` at concurrency ``bench_conc``) against the access role.
+    On ``dev``: ``bench_codec.run_ab`` (``submitters`` x ``iters``, batched
+    and not, bit-identical and equal to the host tables), ``run_repair_ab``
+    at EC6P6MSR (``repair_stripes``) and ``tier_ab``'s legs (A encodes each
+    tier PUT). Last, ``blob get`` with one blobnode process stopped: A in
+    the access process once per blob that lost a data unit.
+
+    ``loadgen`` and ``scrub_ab`` do no card work and are held by the tier-1
+    tests only; here ``loadgen --check-host`` answers, the host calls its
+    ``--wire`` mode needs. ``device`` is the roles' (None: the card).
+    Returns the record with ``checks`` and ``launches`` per process."""
+    import hashlib
+
+    import torch
+
+    from cubefs_tpu_torch.blob import bench_tool, dial
+    from cubefs_tpu_torch.blob.worker import RepairWorker
+    from cubefs_tpu_torch.codec import codemode as cm
+    from cubefs_tpu_torch.deploy.cluster import Cluster, Proc
+    from cubefs_tpu_torch.fs import fsck as fscklib
+    from cubefs_tpu_torch.fs.client import FileSystem
+    from cubefs_tpu_torch.fs.metanode import MetaPartition
+    from cubefs_tpu_torch.fs.scrub import FsScrubber
+    from cubefs_tpu_torch.ops import _build
+    from cubefs_tpu_torch.tool import bench_codec, snapshot, tier_ab
+    from cubefs_tpu_torch.utils import qos, rpc
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    rng = np.random.default_rng(SEED + 31)
+    print(json.dumps({"phase": "operators", "card": card}), flush=True)
+    workdir = tempfile.mkdtemp(prefix="cubefs-smoke-operators-")
+    gate = (qos.DEFAULT._tracker, qos.DEFAULT._levels, qos.DEFAULT._last_refresh)
+    qos.DEFAULT._tracker, qos.DEFAULT._levels = Quiet(), {}
+    qos.DEFAULT._last_refresh = float("-inf")
+    doors = ("CUBEFS_TIERING", "CUBEFS_SCRUB", "CUBEFS_VERIFY_READS", "CUBEFS_QOS")
+    saved_env = {v: os.environ.pop(v, None) for v in doors}
+    cases: dict[str, dict] = {}
+    checks: dict[str, bool] = {}
+    cli_calls: list[float] = []
+    topo = {"metanodes": 3, "datanodes": 4, "replicas": 3,
+            "volume": {"name": "vol1", "mp_count": 3, "dp_count": 4},
+            "blobnodes": BLOB_NODES, "disks_per_blobnode": BLOB_DISKS, "access": True,
+            "proxy": True, "ec_engine": "cuda", "blob_size": blob_size, "device": device}
+    c = Cluster(topo, workdir, timeout=300.0)
+    clients: list = []
+    codes: dict = {}
+    killed: set = set()
+    local = os.path.join(workdir, "local")
+    os.makedirs(local)
+
+    def a_launches() -> int:
+        return _build.LAUNCHES["gf_apply"]
+
+    def cli(*args, check: bool = True, timeout: float = 300.0) -> str:
+        """One operator command, a process of its own; its stdout."""
+        t = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "cubefs_tpu_torch.cli", *args],
+                             capture_output=True, text=True, cwd=root, timeout=timeout)
+        cli_calls.append(time.perf_counter() - t)
+        if check and run.returncode:
+            raise AssertionError(f"cli {args[:2]} exited {run.returncode}: "
+                                 f"{run.stderr[-3000:]}")
+        return run.stdout
+
+    def cli_json(*args) -> dict:
+        return json.loads(cli(*args))
+
+    def wait_for(cond, what: str, timeout: float = 120.0):
+        deadline = time.perf_counter() + timeout
+        while True:
+            try:
+                got = cond()
+            except Exception as e:  # an election in progress
+                got, err = None, e
+            else:
+                err = None
+            if got:
+                return got
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"phase operators: timed out waiting for {what}: {err}")
+            time.sleep(0.2)
+
+    def staged(vols: dict) -> dict:
+        """The stripes and shard bytes a full pass over ``vols`` stages:
+        every volume's bids, at the units' stored sizes."""
+        stripes = nbytes = 0
+        for v in vols.values():
+            u0 = v["units"][0]
+            st, meta, _ = rpc_post(u0["node_addr"], "list_chunk",
+                                   {"disk_id": u0["disk_id"], "chunk_id": u0["chunk_id"]})
+            if st != 200:
+                raise AssertionError(f"list_chunk: {st}")
+            stripes += len(meta["shards"])
+            nbytes += sum(size for _, size, _ in meta["shards"]) * len(v["units"])
+        return {"stripes": stripes, "bytes": nbytes}
+
+    try:
+        t = time.perf_counter()
+        state = c.up()
+        roles = state["roles"]
+        master, cmgr, acc = roles["master"][0], roles["clustermgr"][0], roles["access"][0]
+        startup_s = time.perf_counter() - t
+        host = subprocess.run([sys.executable, "-m", "cubefs_tpu_torch.tool.loadgen",
+                               "--check-host"], capture_output=True, text=True, cwd=root,
+                              timeout=60)
+        cases["loadgen_check_host"] = {"rc": host.returncode, "out": host.stdout.strip(),
+                                       "err": host.stderr[-400:]}
+        checks["loadgen_host_calls_answer"] = host.returncode == 0
+
+        # == 1. cluster stat, vol create ======================================
+        m = ["--master", master]
+        v = [*m, "--vol", "opsvol"]
+        stat = cli_json("cluster", "stat", *m)
+        cm_stat = cli_json("cluster", "stat", "--clustermgr", cmgr)
+        made = cli_json("vol", "create", "opsvol", *m, "--mp-count", "3", "--dp-count", "4")
+        view = cli_json("vol", "view", "opsvol", *m)["volume"]
+        cases["create"] = {"stat_keys": sorted(stat)[:12], "clustermgr_stat": cm_stat,
+                           "created": sorted(made)[:12]}
+        checks["cluster_stat_and_vol_create"] = (
+            "vol1" in stat.get("volumes", {}) and bool(cm_stat)
+            and len(view["mps"]) == 3 and len(view["dps"]) == 4)
+
+        # == 2. the fs group ==================================================
+        paths = [f"/ops/f{i}" for i in range(files)]
+        payload = {p: rng.bytes(file_size) for p in paths}
+        wait_for(lambda: "ops" in cli("fs", "mkdir", "/ops", *v, check=False)
+                 + cli("fs", "ls", "/", *v, check=False), "mkdir /ops")
+        put_ms, get_ms, equal = [], [], []
+        for p in paths:
+            src = os.path.join(local, os.path.basename(p))
+            with open(src, "wb") as f:
+                f.write(payload[p])
+            t = time.perf_counter()
+            cli("fs", "put", src, p, *v)
+            put_ms.append((time.perf_counter() - t) * 1e3)
+            os.remove(src)
+        for p in paths:
+            dst = os.path.join(local, "back")
+            t = time.perf_counter()
+            cli("fs", "get", p, dst, *v)
+            get_ms.append((time.perf_counter() - t) * 1e3)
+            with open(dst, "rb") as f:
+                equal.append(f.read() == payload[p])
+            os.remove(dst)
+        listing = cli("fs", "ls", "/ops", *v)
+        fstat = cli_json("fs", "stat", paths[0], *v)
+        cli("fs", "mv", paths[-1], "/ops/moved", *v)
+        moved_ls = cli("fs", "ls", "/ops", *v)
+        cli("fs", "get", "/ops/moved", os.path.join(local, "moved"), *v)
+        with open(os.path.join(local, "moved"), "rb") as f:
+            moved_equal = f.read() == payload[paths[-1]]
+        os.remove(os.path.join(local, "moved"))
+        cli("fs", "rm", "/ops/moved", *v)
+        rm_ls = cli("fs", "ls", "/ops", *v)
+        cases["fs"] = {"files": files, "file_size": file_size, "put_ms": put_ms,
+                       "get_ms": get_ms, "put_gib_s": file_size / (statistics.median(put_ms) / 1e3)
+                       / 2**30, "get_gib_s": file_size / (statistics.median(get_ms) / 1e3) / 2**30,
+                       "equal": all(equal)}
+        checks["fs_put_get.equal"] = all(equal)
+        checks["fs_ls_stat_mv_rm"] = (
+            all(os.path.basename(p) in listing for p in paths)
+            and fstat["size"] == file_size and "moved" in moved_ls
+            and os.path.basename(paths[-1]) not in moved_ls and moved_equal
+            and "moved" not in rm_ls and os.path.basename(paths[0]) in rm_ls)
+
+        # == 3. the blob group: PUT and GET through the access role ===========
+        objs = [rng.bytes(obj_size) for _ in range(objects)]
+        a0_access = scrape(acc).get(LAUNCH_A, 0.0)
+        locs, put_ms = [], []
+        for i, obj in enumerate(objs):
+            src = os.path.join(local, f"obj{i}")
+            with open(src, "wb") as f:
+                f.write(obj)
+            t = time.perf_counter()
+            loc = json.loads(cli("blob", "put", src, "--access", acc))
+            put_ms.append((time.perf_counter() - t) * 1e3)
+            os.remove(src)
+            with open(os.path.join(local, f"loc{i}.json"), "w") as f:
+                json.dump(loc, f)
+            locs.append(loc)
+        put_a = scrape(acc).get(LAUNCH_A, 0.0) - a0_access
+
+        def blob_gets(label: str) -> None:
+            a0, ms, same = scrape(acc).get(LAUNCH_A, 0.0), [], []
+            for i, obj in enumerate(objs):
+                dst = os.path.join(local, "got")
+                t = time.perf_counter()
+                cli("blob", "get", os.path.join(local, f"loc{i}.json"), dst, "--access", acc)
+                ms.append((time.perf_counter() - t) * 1e3)
+                with open(dst, "rb") as f:
+                    same.append(f.read() == obj)
+                os.remove(dst)
+            cases[label] = {"objects": objects, "ms_runs": ms, "ms": statistics.median(ms),
+                            "gib_s": obj_size / (statistics.median(ms) / 1e3) / 2**30,
+                            "access_a_launches": scrape(acc).get(LAUNCH_A, 0.0) - a0,
+                            "equal": all(same)}
+            checks[f"{label}.equal"] = all(same)
+        cases["blob_put"] = {"objects": objects, "bytes": objects * obj_size, "ms_runs": put_ms,
+                             "ms": statistics.median(put_ms),
+                             "gib_s": obj_size / (statistics.median(put_ms) / 1e3) / 2**30,
+                             "access_a_launches": put_a}
+        blob_gets("blob_get")
+        blob_mode = cm.CodeMode(locs[0]["codemode"])
+        tac = cm.tactic(blob_mode)
+        blob_vols = tiered_volumes(cmgr, locs)
+        checks["blob_codemode_ec12p4"] = blob_mode == cm.CodeMode.EC12P4
+        checks["blob_put_launched_a_per_object"] = put_a >= objects
+        parity = tiered_parity_equal(blob_vols, locs, tac.n, tac.m)
+        checks["blob_parity_equals_plain"] = bool(parity) and all(parity)
+
+        # == 4. the scheduler role and the views ==============================
+        sched_cm = os.path.join(workdir, "sched-cm")
+        shutil.copytree(os.path.join(workdir, "cm"), sched_cm)
+        port = free_port()
+        mq_me = f"127.0.0.1:{port}"
+        sp = Proc("scheduler", {"role": "scheduler", "name": "scheduler", "listen_port": port,
+                                "data_dir": sched_cm, "task_dir": os.path.join(workdir, "tasks"),
+                                "mq_me": mq_me, "mq_peers": [mq_me],
+                                "mq_dir": os.path.join(workdir, "mq"), "ec_engine": "cuda",
+                                "tasks_off": ["disk_repair", "balance", "rebalance", "compact",
+                                              "scrub"],
+                                **({"device": device} if device else {})}, workdir)
+        c.procs.append(sp)
+        sched = sp.wait_addr(300.0)
+        s = ["--scheduler", sched]
+        switches = cli_json("tasks", "list", *s)
+        vols_view = cli_json("blob", "vols", "--clustermgr", cmgr)["volumes"]
+        disks_view = cli_json("blob", "disks", "--clustermgr", cmgr)["disks"]
+        nodes_view = cli_json("node", "list", *m)
+        cli("cm", "config-set", "operators.smoke", "on", "--clustermgr", cmgr)
+        config = cli_json("cm", "config-list", "--clustermgr", cmgr)
+        mq = wait_for(lambda: cli_json("mq", "status", "--member", sched), "mq status")
+        views = {name: cli_json("metrics", name, "--addr", addr) for name, addr in
+                 (("codec", acc), ("repair", acc), ("integrity", acc))}
+        write_path = [cli_json("metrics", "write-path", "--addr", a) for a in roles["metanode"]]
+        wire = [cli_json("metrics", "wire", "--addr", a)
+                for a in (*roles["metanode"], *roles["datanode"])]
+        raw = cli("metrics", "raw", "--addr", acc)
+        cases["views"] = {"switches": switches, "volumes": len(vols_view),
+                          "disks": len(disks_view), "mq_topics": sorted(mq),
+                          "codec": views["codec"], "write_path": write_path,
+                          "wire_frames": [sum(w["frames"].values()) for w in wire]}
+        checks["views_answer_json"] = (
+            switches == {"disk_repair": False, "shard_repair": True, "blob_delete": True,
+                         "balance": False, "rebalance": False, "volume_inspect": True,
+                         "compact": False, "scrub": False}
+            and {str(k) for k in blob_vols} <= set(vols_view)
+            and len(disks_view) == BLOB_NODES * BLOB_DISKS
+            and len(nodes_view["datanodes"]) == 4 and len(nodes_view["metanodes"]) == 3
+            and "operators.smoke" in json.dumps(config) and sorted(mq) == ["delete", "repair"]
+            and set(views["repair"]) >= {"bytes_pulled", "repair_tasks"}
+            and set(views["integrity"]) >= {"detected", "healed", "scrub_items"})
+        checks["views_count_the_traffic"] = (
+            views["codec"].get("encode", {}).get("stripes_submitted", 0) >= objects
+            and views["codec"]["steps_by_engine"].get("cuda", 0) > 0
+            and sum(w["raft"]["wal_fsyncs"] for w in write_path) > 0
+            and sum(sum(w["frames"].values()) for w in wire) > 0
+            and LAUNCH_A in raw)
+
+        # == 5. scrub run --full with planted bitflips ========================
+        a0_sched = scrape(sched).get(LAUNCH_A, 0.0)
+        disk_paths = {int(k): d["path"] for k, d in disks_view.items()}
+        vids = sorted(blob_vols)
+        bids = {vid: sorted(b for loc in locs for sl in loc["slices"] if sl["vid"] == vid
+                            for b in range(sl["min_bid"], sl["min_bid"] + sl["count"]))
+                for vid in vids}
+        targets = [(vids[i % len(vids)], idx)
+                   for i, idx in enumerate((2, 7, tac.n, tac.n + 3)[:bitflips])]
+        planted = []
+        for i, (vid, idx) in enumerate(targets):
+            u = blob_vols[vid]["units"][idx]
+            bid = bids[vid][(i // len(vids) * 3 + i) % len(bids[vid])]
+            st, _, shard = rpc_post(u["node_addr"], "get_shard", {
+                "disk_id": u["disk_id"], "chunk_id": u["chunk_id"], "bid": bid})
+            if st != 200:
+                raise AssertionError(f"get_shard before the flip: {st}")
+            path, at = flip_shard_byte(disk_paths[u["disk_id"]], u["chunk_id"], shard)
+            refused = rpc_post(u["node_addr"], "get_shard", {
+                "disk_id": u["disk_id"], "chunk_id": u["chunk_id"], "bid": bid})[0]
+            planted.append({"vid": vid, "unit": idx, "bid": bid, "disk": u["disk_id"],
+                            "file": os.path.basename(path), "offset": at,
+                            "read_after_flip": refused})
+        checks["bitflips_refused_on_read"] = all(p["read_after_flip"] == 409 for p in planted)
+        pass_bytes = staged(blob_vols)
+
+        def scrub_pass(label: str) -> dict:
+            a0 = scrape(sched).get(LAUNCH_A, 0.0)
+            t = time.perf_counter()
+            res = cli_json("scrub", "run", "--full", *s)["result"]
+            secs = time.perf_counter() - t
+            cases[label] = {"result": res, "seconds": secs, **pass_bytes,
+                            "gib_s": pass_bytes["bytes"] / secs / 2**30,
+                            "scheduler_a_launches": scrape(sched).get(LAUNCH_A, 0.0) - a0}
+            return cases[label]
+        rot = scrub_pass("scrub_rot_pass")
+        queued = cli_json("tasks", "stats", *s)["tasks"]
+        leased: dict[str, dict] = {}
+        done: list[dict] = []
+        wk = RepairWorker(rpc.Client(sched), rpc.Client(cmgr), rpc.NodePool(), engine="cuda",
+                          device=dev)
+        call = wk.sched.call
+
+        def record(method, args=None, body=b"", timeout=30.0):
+            meta, out = call(method, args, body, timeout)
+            if method == "acquire_task" and meta.get("task"):
+                leased[meta["task"]["task_id"]] = meta["task"]
+            elif method == "complete_task":
+                done.append(leased[args["task_id"]])
+            return meta, out
+        wk.sched.call = record
+        a0, t = a_launches(), time.perf_counter()
+        while wk.run_once():
+            pass
+        for task in done:  # the rebuilt units, written back to the clustermgr role
+            st = rpc_post(cmgr, "update_volume_unit", {
+                "vid": task["vid"], "index": task["unit_index"], "disk_id": task["dest_disk"],
+                "chunk_id": task["dest_chunk"], "node_addr": task["dest_addr"]})[0]
+            if st != 200:
+                raise AssertionError(f"update_volume_unit: {st}")
+        cases["scrub_repair"] = {"queued": queued, "tasks": [(d["vid"], d["unit_index"])
+                                                             for d in done],
+                                 "completed": wk.completed, "failed": wk.failed,
+                                 "seconds": time.perf_counter() - t,
+                                 "a_launches": a_launches() - a0}
+        second = scrub_pass("scrub_second_pass")
+        after = tiered_volumes(cmgr, locs)
+        rebuilt = [after[p["vid"]]["units"][p["unit"]]["disk_id"] != p["disk"] for p in planted]
+        blob_gets("blob_get_after_scrub")
+        rot_vids = sorted({vid for vid, _ in targets})
+        checks["scrub_finds_every_bitflip"] = (
+            rot["result"]["completed_pass"] and rot["result"]["corrupt"] == len(rot_vids)
+            and queued.get("pending", 0) == len(targets)
+            and sorted((d["vid"], d["unit_index"]) for d in done) == sorted(targets))
+        checks["scrub_rebuilds_every_bitflip"] = (
+            wk.completed == len(targets) and wk.failed == 0 and all(rebuilt)
+            and cases["scrub_repair"]["a_launches"] > 0)
+        checks["scrub_second_pass_clean"] = (second["result"]["completed_pass"]
+                                             and second["result"]["corrupt"] == 0)
+        checks["scrub_launched_a_in_the_scheduler"] = (
+            rot["scheduler_a_launches"] > 0 and second["scheduler_a_launches"] > 0)
+        scheduler_a = scrape(sched).get(LAUNCH_A, 0.0) - a0_sched
+
+        # == 6. fsck and the FS scrubber, in this process =====================
+        pool = rpc.NodePool()
+        fs = FileSystem(rpc.call(master, "client_view", {"name": "opsvol"})[0]["volume"], pool,
+                        master_addr=master)
+        clients.append(fs)
+        live = [p for p in paths[:-1]]
+
+        def fsck(label: str, **kw) -> dict:
+            t = time.perf_counter()
+            rep = fscklib.fsck(fs, pool, **kw)
+            secs = time.perf_counter() - t
+            cases[label] = {**rep.summary(), "seconds": secs,
+                            "s_per_gib": secs / max(rep.bytes_checked, 1) * 2**30}
+            return cases[label]
+
+        def corrupt(path: str) -> tuple[int, int]:
+            ek = fs.meta.inode_get(fs.resolve(path))["extents"][0]
+            dp = fs.data._dp_by_id(ek["dp_id"])
+            victim = next(a for a in dp["replicas"] if a != dp.get("leader"))
+            st = rpc_post(victim, "write_replica", {"dp_id": ek["dp_id"],
+                                                    "extent_id": ek["extent_id"],
+                                                    "offset": 0}, b"\x00" * 10)[0]
+            if st != 200:
+                raise AssertionError(f"write_replica: {st}")
+            return ek["dp_id"], ek["extent_id"]
+        clean = fsck("fsck_clean")
+        key = corrupt(live[0])
+        found = fsck("fsck_mismatch")
+        healed = fsck("fsck_heal", heal=True)
+        again = fsck("fsck_after_heal")
+        checks["fsck_clean"] = clean["clean"] and clean["files"] == len(live)
+        checks["fsck_finds_and_heals_the_mismatch"] = (
+            found["replica_mismatches"] == 1 and not found["clean"]
+            and healed["healed_extents"] == 1 and again["clean"])
+        key2 = corrupt(live[1])
+        fscrub = FsScrubber(fs, pool)
+        t = time.perf_counter()
+        fpass = fscrub.run_full_pass()
+        cases["fs_scrubber"] = {"result": fpass, "seconds": time.perf_counter() - t,
+                                "healed": sorted(fscrub.healed)}
+        checks["fs_scrubber_heals_the_second"] = (
+            fpass["completed_pass"] and fpass["corrupt"] == 1 and fscrub.healed == {key2}
+            and fsck("fsck_after_scrubber")["clean"] and key != key2)
+        checks["fs_reads_equal_after_heals"] = all(fs.read_file(p) == payload[p] for p in live)
+
+        # == 7. snapshot: export, verify, restore =============================
+        snap, restored_dir = os.path.join(workdir, "snap"), os.path.join(workdir, "restored")
+        t = time.perf_counter()
+        manifest = snapshot.export(master, "opsvol", snap)
+        verified = snapshot.verify(snap)
+        pids = snapshot.restore(snap, restored_dir)
+        digests = {}
+        for mp in manifest["mps"]:
+            vmp = next(x for x in fs.meta.mps if x["pid"] == mp["pid"])
+            meta, live_state = rpc.call_replicas(pool, vmp.get("addrs") or [vmp["addr"]],
+                                                 "export_state", {"pid": mp["pid"]},
+                                                 deadline=10.0)
+            part = MetaPartition(mp["pid"], mp["start"], mp["end"],
+                                 data_dir=os.path.join(restored_dir, f"mp_{mp['pid']}"))
+            digests[mp["pid"]] = (hashlib.sha256(live_state).hexdigest(),
+                                  hashlib.sha256(part.export_state()[0]).hexdigest())
+        cases["snapshot"] = {"seconds": time.perf_counter() - t, "mps": len(manifest["mps"]),
+                             "restored": pids, "digests": digests}
+        checks["snapshot_restores_the_live_state"] = (
+            verified == manifest and sorted(pids) == sorted(mp["pid"] for mp in manifest["mps"])
+            and len(pids) == 3 and all(a == b for a, b in digests.values()))
+
+        # == 8. the dial prober and the blob bench ============================
+        prober = dial.DialProber(rpc.Client(acc))
+        probes = [prober.probe_once() for _ in range(3)]
+        t = time.perf_counter()
+        bench = bench_tool.run(rpc.Client(acc), size=bench_size, count=bench_count,
+                               concurrency=bench_conc)
+        cases["dial"] = {"probes": probes, "failures": prober.failures}
+        cases["blob_bench"] = {**bench, "seconds": time.perf_counter() - t}
+        checks["dial_probes_ok"] = all(probes) and prober.failures == 0
+        checks["blob_bench_ok"] = bench["count"] == bench_count and bench["put_mbps"] > 0 \
+            and bench["get_mbps"] > 0
+
+        # == 9. bench_codec and tier_ab, in this process on the card ==========
+        a0, t = a_launches(), time.perf_counter()
+        ab = bench_codec.run_ab(submitters=submitters, iters=iters, device=dev)
+        cases["bench_codec_run_ab"] = {**ab, "seconds": time.perf_counter() - t,
+                                       "a_launches": a_launches() - a0}
+        a0, t = a_launches(), time.perf_counter()
+        rab = bench_codec.run_repair_ab(stripes=repair_stripes, device=dev)
+        cases["bench_codec_repair_ab"] = {**rab, "seconds": time.perf_counter() - t,
+                                          "a_launches": a_launches() - a0}
+        checks["bench_codec_bit_identical"] = (ab["bit_identical"] and ab["equals_plain"]
+                                               and rab["bit_identical"])
+        checks["bench_codec_coalesces"] = (ab["mean_stripes_per_device_step"] or 0) > 1 \
+            and cases["bench_codec_run_ab"]["a_launches"] > 0
+        if tier_files is not None:
+            saved_files, tier_ab.FILES = tier_ab.FILES, tier_files
+        try:
+            tmp = os.path.join(workdir, "tier_ab")
+            a0, t = a_launches(), time.perf_counter()
+            leg_a = tier_ab.leg_replicated(tmp, 13)
+            leg_b = tier_ab.leg_tiered(tmp, 13, dev)
+            leg_d = tier_ab.leg_digests(tmp, 13, dev)
+            n_tier = tier_ab.FILES
+        finally:
+            if tier_files is not None:
+                tier_ab.FILES = saved_files
+            qos.DEFAULT._tracker, qos.DEFAULT._levels = Quiet(), {}
+        cases["tier_ab"] = {"legs": [leg_a, leg_b, leg_d], "seconds": time.perf_counter() - t,
+                            "savings_x": leg_a["ratio"] / leg_b["ratio"],
+                            "a_launches": a_launches() - a0}
+        checks["tier_ab_ratios_and_digests"] = (
+            leg_b["transitioned"] == n_tier and 1.3 <= leg_b["ratio"] <= 2.0
+            and 2.5 <= leg_a["ratio"] <= 3.5 and leg_d["identical"]
+            and cases["tier_ab"]["a_launches"] >= n_tier)
+
+        # == 3b. blob get with one blobnode process stopped ===================
+        vols = tiered_volumes(cmgr, locs)
+        stopped, blob_exit, lost = stop_a_blobnode(c, roles["blobnode"], vols, locs,
+                                                   tac.n, tac.m)
+        killed.add(stopped)
+        blob_gets("blob_degraded_get")
+        cases["degraded"] = {"stopped": stopped, "exit": blob_exit,
+                             "blobs_lost_a_data_unit": lost}
+        checks["degraded_launched_a_per_lost_blob"] = (
+            lost > 0 and cases["blob_degraded_get"]["access_a_launches"] >= lost)
+        launches = {"access_role": scrape(acc).get(LAUNCH_A, 0.0) - a0_access,
+                    "scheduler_role": scheduler_a, "this_process": a_launches()}
+    except BaseException:
+        print(json.dumps({"phase": "operators", "failed_after": cases, "checks": checks},
+                         default=str), file=sys.stderr, flush=True)
+        raise
+    finally:
+        for fsx in clients:
+            for cl in (*fsx.meta._packet_clients.values(), *fsx.data._packet_clients.values()):
+                cl.close()
+        codes = c.down()
+        shutil.rmtree(workdir, ignore_errors=True)
+        qos.DEFAULT._tracker, qos.DEFAULT._levels, qos.DEFAULT._last_refresh = gate
+        for k, val in saved_env.items():
+            if val is not None:
+                os.environ[k] = val
+    checks["every_role_exited_0"] = all(rc == 0 for name, rc in codes.items()
+                                        if name not in killed)
+    return {"phase": "operators", "card": card, "seconds": time.perf_counter() - t_phase,
+            "startup_s": startup_s, "cli_calls": len(cli_calls),
+            "cli_call_s": {"median": statistics.median(cli_calls), "max": max(cli_calls)},
+            "cluster": {"roles": {r: len(a) for r, a in roles.items()}, "scheduler": 1,
+                        "replicas": 3, "blob_size": blob_size, "codemode": blob_mode.name,
+                        "files": files, "file_size": file_size, "objects": objects,
+                        "object": obj_size, "volumes": len(blob_vols)},
+            "planted": planted, "cases": cases, "exit_codes": codes, "launches": launches,
+            "checks": checks}
+
+
 def main() -> int:
     import torch
 
@@ -5023,7 +5612,21 @@ def main() -> int:
     if failed:
         raise AssertionError(f"clients checks failed: {failed}")
 
-    # -- 21. the sharded step: 8 ranks over torch.distributed ----------------
+    # -- 21. the operator plane and the blob and codec tools ------------------
+    # The roles are processes, driven by the CLI's processes: A runs in the
+    # access role on the PUT stacks and the degraded GETs, in the scheduler
+    # role on its scrub's parity recompute, and here under the repair
+    # worker, bench_codec and tier_ab. loadgen and scrub_ab do no card work
+    # (tier-1 holds them). Counts from 0.
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+    ops = operators_phase(dev, card)
+    emit(ops)
+    failed = [k for k, v in ops["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"operators checks failed: {failed}")
+
+    # -- 22. the sharded step: 8 ranks over torch.distributed ----------------
     # Built above, in this process: the ranks find the libraries and run
     # no nvcc. Every rank runs A and B on its own block; the collectives
     # go through gloo, which stages CUDA buffers through host memory and
@@ -5046,7 +5649,7 @@ def main() -> int:
     if sh_bad:
         raise AssertionError(f"sharded step checks failed: {sh_bad}")
 
-    # -- 22. the kernels' record --------------------------------------------
+    # -- 23. the kernels' record --------------------------------------------
     gf_main, crc_main = gf_results[0], crc_results[0]
     bm_main, probe_main = (next(x for x in bm_results
                                 if (x["case"], x["extract"], x["probe"], x["grid"]) == key)
@@ -5066,6 +5669,7 @@ def main() -> int:
          "fs_doors_launches": doors["launches"]["gf_apply"],
          "clients_launches": {proc: counts["gf_apply"]
                               for proc, counts in cli["launches"].items()},
+         "operators_launches": ops["launches"],
          "equal": gf_main["equal"],
          "max_abs_err": gf_main["max_abs_err"], "ms": gf_main["ms"],
          "device_ms": gf_main["device_ms"], "plain_ms": gf_main["plain_ms"],

@@ -22,7 +22,13 @@ leader proposes a `split` record carrying the deterministic split key
 (the range median) and the new child id; every replica's apply moves
 the upper half of the range into a new child shard and starts the
 child's raft group over the same replica set. The caller then
-registers the new range layout with the clustermgr catalog.
+registers the new range layout with the clustermgr catalog. The child's
+items come in through the parent's log, not its own, so its group is
+``seeded``: it starts with its log compacted through index 1, and a
+member that joins with an empty log (a spare that replaces a replica)
+gets a snapshot of the child. The parent's log may be compacted past
+the split by then, and the reference, whose child log starts empty,
+sends such a member no items of the child.
 
 The port's copy of ``cubefs_tpu/blob/shardnode.py``, host-only like the
 reference's: the ``shards.json`` manifest, each shard's KV directory
@@ -55,6 +61,7 @@ class Shard:
         self._lock = lockwitness.make_rlock("Shard._lock")
         self.on_split = None  # set by the hosting ShardNode
         self.on_range_change = None  # set by the hosting ShardNode
+        self.seeded = False  # born of a split: its raft group starts seeded
         if data_dir:
             self._kv = KvStore(data_dir)
             self._mem = None
@@ -245,10 +252,11 @@ class ShardNode:
 
     # ---- shard lifecycle ----
     def _open_shard(self, shard_id: int, start: str, end: str,
-                    peers: list[str] | None) -> Shard:
+                    peers: list[str] | None, seeded: bool = False) -> Shard:
         kv_dir = (os.path.join(self.data_dir, f"kv_{shard_id}")
                   if self.data_dir else None)
         sh = Shard(shard_id, start, end, data_dir=kv_dir)
+        sh.seeded = seeded
         sh.on_split = self._apply_split
         sh.on_range_change = self._save_manifest
         self.shards[shard_id] = sh
@@ -263,6 +271,7 @@ class ShardNode:
                 if self.data_dir else None,
                 snapshot_fn=sh.state_bytes,
                 restore_fn=sh.restore_state,
+                seeded=sh.seeded,
             )
             raftlib.register_routes(self.extra_routes, node)
             self.rafts[shard_id] = node.start()
@@ -341,7 +350,7 @@ class ShardNode:
                         f"split key {split_key!r} outside parent range "
                         f"[{parent.start!r}, {parent.end!r})")
                 child = self._open_shard(child_id, split_key, parent.end,
-                                         rec.get("peers"))
+                                         rec.get("peers"), seeded=True)
             # anything the parent still holds at/above the split key
             # belongs to the child or its descendants (re-put is
             # idempotent on replay). Unbounded upper: the child's end
@@ -385,6 +394,7 @@ class ShardNode:
                         if self.data_dir else None,
                         snapshot_fn=sh.state_bytes,
                         restore_fn=sh.restore_state,
+                        seeded=sh.seeded,
                     )
                     raftlib.register_routes(self.extra_routes, node)
                     self.rafts[shard_id] = node.start()
@@ -395,9 +405,23 @@ class ShardNode:
         cm_client.call("shardnode_heartbeat", {"addr": self.addr})
 
     def stop(self) -> None:
-        for r in self.rafts.values():
-            r.stop()
-        for sh in self.shards.values():
+        """Stop every raft group, then close every shard. A split applied
+        meanwhile opens its child's group under the node lock, so the
+        groups are read under it and stopped outside it (a group's stop
+        waits on its apply, which may hold the node lock) until none is
+        left running."""
+        stopped: set[int] = set()
+        while True:
+            with self._lock:
+                rafts = [r for r in self.rafts.values() if id(r) not in stopped]
+            if not rafts:
+                break
+            for r in rafts:
+                r.stop()
+                stopped.add(id(r))
+        with self._lock:
+            shards = list(self.shards.values())
+        for sh in shards:
             sh.close()
 
     # ---------------- RPC surface ----------------

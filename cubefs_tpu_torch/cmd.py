@@ -29,8 +29,14 @@ Config keys (JSON), with the reference's names and defaults:
   audit_dir:    the audit log, ``<audit_dir>/<role>.audit.log``, and the
                 slow-trace log, ``<audit_dir>/slowtrace.jsonl``
   ec_engine:    the codec engine (codec/engine.py): cuda, numpy, cpp,
-                numpy-xor, cpp-xor or auto; ``access`` defaults to auto,
-                ``codec`` to ``CUBEFS_TPU_EC_ENGINE`` or cuda
+                numpy-xor, cpp-xor or auto; ``access`` and ``scheduler``
+                (the port's own key there: the scrub's parity recompute)
+                default to auto, ``codec`` to ``CUBEFS_TPU_EC_ENGINE`` or
+                cuda
+  tasks_off:    the port's own key: task kinds a scheduler switches off
+                before its loop's first tick, as ``tasks disable`` would
+                (e.g. ``disk_repair`` for a scheduler whose clustermgr
+                state hears no heartbeats)
   blob_size, az, rack, node_id, allow_colocated_units: as the reference's
   vols:         {bucket: vol_name} (objectnode), each served by a
                 ``FileSystem`` over the master's ``client_view``
@@ -387,7 +393,10 @@ def run_role(cfg: dict):
             node_pool=pool,
             data_dir=cfg.get("task_dir"),
             device=device,
+            engine=cfg.get("ec_engine", "auto"),
         )
+        for kind in cfg.get("tasks_off", ()):
+            svc.switch.disable(kind)  # before the first tick of its loop
         svc.start()
         routes = {**rpc.expose(svc), **mq_routes,
                   **{f"cm_{k}": v for k, v in rpc.expose(cm).items()}}

@@ -26,6 +26,7 @@
 #include "packetwire.h"
 
 #include <algorithm>
+#include <array>
 #include <atomic>
 #include <chrono>
 #include <cstdint>
@@ -249,7 +250,16 @@ struct Partition {
   std::string leader;         // advertised redirect target when not
   std::unordered_map<uint64_t, std::string> inodes;  // ino -> JSON blob
   std::unordered_map<uint64_t, std::map<std::string, uint64_t>> dentries;
+  // sub-ranges a split or merge handed away: {lo, hi, target pid}
+  std::vector<std::array<uint64_t, 3>> moved;
 };
+
+// The pid a moved sub-range went to, or 0 (caller holds p.mu).
+uint64_t moved_to(const Partition& p, uint64_t ino) {
+  for (auto& m : p.moved)
+    if (m[0] <= ino && ino < m[1]) return m[2];
+  return 0;
+}
 
 struct MetaServe {
   mutable std::shared_mutex pmu;
@@ -319,6 +329,14 @@ std::shared_ptr<Partition> gate(MetaServe* ms, uint64_t pid,
   return p;
 }
 
+// Python's _range_gate_read: a moved sub-range redirects (453, the
+// target pid) instead of answering ENOENT from the trees it dropped to a
+// client that holds the partition map from before the split.
+void fence_moved(const Partition& p, uint64_t ino) {
+  if (uint64_t t = moved_to(p, ino))
+    throw RpcReject{453, "pid=" + std::to_string(t)};
+}
+
 uint64_t need_num(const JVal& args, const char* key) {
   const JVal* v = args.get(key);
   if (!v || v->kind != JVal::NUM)
@@ -339,6 +357,7 @@ std::string op_lookup(MetaServe* ms, const JVal& args) {
   std::string name = need_str(args, "name");
   std::shared_lock<std::shared_mutex> lk;
   auto p = gate(ms, pid, lk);
+  fence_moved(*p, parent);
   auto d = p->dentries.find(parent);
   if (d == p->dentries.end())
     throw RpcReject{errno_code(2), name + " not in " + std::to_string(parent)};
@@ -353,6 +372,7 @@ std::string op_inode_get(MetaServe* ms, const JVal& args) {
   uint64_t ino = need_num(args, "ino");
   std::shared_lock<std::shared_mutex> lk;
   auto p = gate(ms, pid, lk);
+  fence_moved(*p, ino);
   auto it = p->inodes.find(ino);
   if (it == p->inodes.end())
     throw RpcReject{errno_code(2), "inode " + std::to_string(ino)};
@@ -364,6 +384,7 @@ std::string op_readdir(MetaServe* ms, const JVal& args) {
   uint64_t parent = need_num(args, "parent");
   std::shared_lock<std::shared_mutex> lk;
   auto p = gate(ms, pid, lk);
+  fence_moved(*p, parent);
   auto d = p->dentries.find(parent);
   if (d == p->dentries.end())
     throw RpcReject{errno_code(20),
@@ -385,6 +406,7 @@ std::string op_dentry_count(MetaServe* ms, const JVal& args) {
   uint64_t parent = need_num(args, "parent");
   std::shared_lock<std::shared_mutex> lk;
   auto p = gate(ms, pid, lk);
+  fence_moved(*p, parent);
   auto d = p->dentries.find(parent);
   size_t n = d == p->dentries.end() ? 0 : d->second.size();
   return "{\"count\": " + std::to_string(n) + "}";
@@ -405,12 +427,26 @@ std::string op_walk(MetaServe* ms, const JVal& args) {
     if (v.kind != JVal::STR) throw RpcReject{400, "missing/bad arg names"};
     names.push_back(v.str);
   }
+  // With "pid" (the partition the client's view routed the walk to),
+  // the walk reads that partition alone while the ino lies in its range:
+  // every volume's first partition starts at inode 1, so on a node
+  // hosting two volumes a range names no partition. Without it, the
+  // reference's search by range.
+  const JVal* pid_v = args.get("pid");
+  const bool pinned = pid_v && pid_v->kind == JVal::NUM;
+  const std::shared_ptr<Partition> home =
+      pinned ? ms->by_pid((uint64_t)pid_v->num) : nullptr;
+  auto owner = [&](uint64_t i) -> std::shared_ptr<Partition> {
+    if (!pinned) return ms->by_ino(i);
+    return (home && home->start <= i && i < home->end) ? home : nullptr;
+  };
   size_t i = 0;
   while (i < names.size()) {
-    auto p = ms->by_ino(ino);
+    auto p = owner(ino);
     if (!p) break;
     std::shared_lock l(p->mu);
-    if (!p->serving) break;
+    // a moved sub-range hands back a partial, as Python's walk does
+    if (!p->serving || moved_to(*p, ino)) break;
     auto d = p->dentries.find(ino);
     if (d == p->dentries.end())
       throw RpcReject{errno_code(2),
@@ -429,10 +465,10 @@ std::string op_walk(MetaServe* ms, const JVal& args) {
   }
   out += "]";
   if (i == names.size() && want_stat) {
-    auto p = ms->by_ino(ino);
+    auto p = owner(ino);
     if (p) {
       std::shared_lock l(p->mu);
-      if (p->serving) {
+      if (p->serving && !moved_to(*p, ino)) {
         auto it = p->inodes.find(ino);
         if (it == p->inodes.end())
           throw RpcReject{errno_code(2), "inode " + std::to_string(ino)};
@@ -566,6 +602,18 @@ void ms_set_serving(void* h, uint64_t pid, int serving, const char* leader) {
   std::unique_lock l(p->mu);
   p->serving = serving != 0;
   p->leader = leader ? leader : "";
+}
+
+// The partition's moved sub-ranges, replaced whole: n triples {lo, hi,
+// target pid} at v.
+void ms_set_moved(void* h, uint64_t pid, const uint64_t* v, uint64_t n) {
+  auto* ms = (MetaServe*)h;
+  auto p = ms->by_pid(pid);
+  if (!p) return;
+  std::unique_lock l(p->mu);
+  p->moved.clear();
+  for (uint64_t i = 0; i < n; i++)
+    p->moved.push_back({v[3 * i], v[3 * i + 1], v[3 * i + 2]});
 }
 
 void ms_put_inode(void* h, uint64_t pid, uint64_t ino, const char* blob,

@@ -16,6 +16,7 @@ and a failed build of it raises (the reference serves without it).
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import json
 import os
@@ -546,6 +547,8 @@ class MetaPartition:
                     if not (f["hi"] <= lo or hi <= f["lo"])]:
             del self.frozen[sid]
             self._range_taps.pop(sid, None)
+        if self._mir is not None:
+            self._mirror_moved()
         return {"start": self.start, "end": self.end}
 
     def _apply_range_drop(self, r: dict) -> dict:
@@ -645,6 +648,15 @@ class MetaPartition:
             for name, ino in d.items():
                 nb = name.encode()
                 lib.ms_put_dentry(h, self.pid, parent, nb, len(nb), ino)
+        self._mirror_moved()
+
+    def _mirror_moved(self) -> None:
+        """The moved sub-ranges, so the native plane redirects reads of
+        them (453) as ``_range_gate_read`` does, where the reference's
+        answers ENOENT from the dropped trees."""
+        lib, h = self._mir
+        flat = [int(x) for key, tpid in self.moved.items() for x in (*key.split("-"), tpid)]
+        lib.ms_set_moved(h, self.pid, (ctypes.c_uint64 * len(flat))(*flat), len(self.moved))
 
     def _mirror_inode(self, ino: int) -> None:
         lib, h = self._mir
@@ -2260,19 +2272,37 @@ class MetaNode:
                     return mp
         return None
 
+    def _walk_owner(self, pid, ino: int):
+        """The partition a walk step reads ``ino`` from. With ``pid`` (the
+        partition the client's view routed the walk to), that one alone
+        while ``ino`` lies in its range: every volume's first partition
+        starts at inode 1, so on a node hosting two volumes a range names
+        no partition. Without it, the reference's search by range."""
+        if pid is None:
+            return self._local_leader_for_ino(ino)
+        with self._lock:
+            mp = self.partitions.get(pid)
+            if mp is None or not mp.start <= ino < mp.end:
+                return None
+            node = self.rafts.get(pid)
+            if node is not None and node.status()["role"] != "leader":
+                return None
+            return mp
+
     def rpc_walk(self, args, body):
         """Server-side path walk (the round-trip killer behind
         stat/resolve: one request replaces one lookup per component).
         Consumes `names` from `ino` while this node leader-serves the
-        partitions on the chain; returns the final ino (+ inode when
-        `stat` and locally owned) or a partial {ino, remaining} the
-        client resumes elsewhere — the cross-partition contract of
-        distributed path walking."""
+        partition the client routed it to (``pid``); returns the final
+        ino (+ inode when `stat` and locally owned) or a partial {ino,
+        remaining} the client resumes elsewhere — the cross-partition
+        contract of distributed path walking."""
         ino = args["ino"]
         names = list(args["names"])
+        pid = args.get("pid")
         try:
             while names:
-                mp = self._local_leader_for_ino(ino)
+                mp = self._walk_owner(pid, ino)
                 if mp is None or mp.range_moved_target(ino) is not None:
                     # a moved range hands back a partial: the client
                     # resumes via its (refreshed) partition map instead
@@ -2282,7 +2312,7 @@ class MetaNode:
                 names.pop(0)
             out = {"ino": ino, "remaining": names}
             if not names and args.get("stat"):
-                mp = self._local_leader_for_ino(ino)
+                mp = self._walk_owner(pid, ino)
                 if mp is not None:
                     out["inode"] = mp.inode_get(ino)
             return out

@@ -120,7 +120,7 @@ class RaftNode:
 
     def __init__(self, group_id: str, me: str, peers: list[str], apply_fn,
                  pool, data_dir: str | None = None,
-                 snapshot_fn=None, restore_fn=None):
+                 snapshot_fn=None, restore_fn=None, seeded: bool = False):
         self.group_id = group_id
         self.me = me
         self.peers = [p for p in peers if p != me]
@@ -188,6 +188,14 @@ class RaftNode:
                 # entries would land after the garbage and be dropped by
                 # the next load
                 self._persist_entries([], rewrote=True)
+        if seeded and self.term == 0 and not self.log_base and not self.log:
+            # a fresh group whose FSM begins with state its log will not
+            # hold (a shard born of a split): that state is entry 1 of
+            # term 0, compacted on every founding member, so a member
+            # that joins later with an empty log is sent a snapshot of it
+            self.log_base = self.commit_index = self.last_applied = 1
+            self._wal_written = self._wal_synced = 1
+            self._persist_meta()
         # pipelined replication door: W in-flight AppendEntries per
         # follower, dispatched through the shared ReplMux lanes. "0"
         # restores the per-peer synchronous repl threads below exactly.

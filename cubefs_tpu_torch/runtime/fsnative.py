@@ -68,6 +68,8 @@ def load() -> ctypes.CDLL:
             lib.ms_drop_partition.argtypes = [c.c_void_p, c.c_uint64]
             lib.ms_set_serving.argtypes = [
                 c.c_void_p, c.c_uint64, c.c_int, c.c_char_p]
+            lib.ms_set_moved.argtypes = [
+                c.c_void_p, c.c_uint64, c.c_void_p, c.c_uint64]
             lib.ms_put_inode.argtypes = [
                 c.c_void_p, c.c_uint64, c.c_uint64, c.c_char_p, c.c_uint32]
             lib.ms_del_inode.argtypes = [c.c_void_p, c.c_uint64, c.c_uint64]

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import bisect
 import threading
+import time
 
 
 class _Metric:
@@ -90,6 +91,21 @@ class Histogram(_Metric):
                 s["sum"] += value
                 for j in range(bisect.bisect_left(self.BUCKETS, value), len(self.BUCKETS)):
                     s["buckets"][j] += 1
+
+    def time(self, **labels):
+        """A context manager observing the wall seconds of its block (the
+        dial prober's per-leg latency)."""
+        metric = self
+
+        class _Timer:
+            def __enter__(self):
+                self.t0 = time.perf_counter()
+                return self
+
+            def __exit__(self, *exc):
+                metric.observe(time.perf_counter() - self.t0, **labels)
+
+        return _Timer()
 
     def samples(self):
         with self._lock:

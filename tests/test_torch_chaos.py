@@ -7,9 +7,9 @@ port's in-process cluster of ``tests/test_torch_blob.py`` (``device=
 reference builds its own. The file-system plane's scenarios run on the
 port's metanode and datanode, the flash-tier drill on the port's
 ``fs/remotecache.py``, and the AZ blackout on the port's copy of
-``tests/test_blob_topology.py``'s ``AZCluster`` (``device="cpu"``). The
-dial and QoS-drill scenarios wait for the modules they drive
-(ROADMAP.md §1).
+``tests/test_blob_topology.py``'s ``AZCluster`` (``device="cpu"``), the
+dial prober's failed legs on the port's ``blob/dial.py`` and the
+noisy-neighbor QoS drill on the port's ``tool/loadgen.py``.
 """
 
 import pytest
@@ -46,6 +46,9 @@ SCENARIOS = {  # the reference's scenarios whose modules the port holds
     # the failure-domain topology and the flash read tier
     "test_single_az_blackout_serves_reads_then_rebalances_home",
     "test_flashnode_death_and_az_blackout_reads_stay_exact",
+    # the operator tools: the dial prober and the traffic model
+    "test_dial_prober_records_failed_legs",
+    "test_noisy_neighbor_brownout_drill_is_reproducible",
 }
 
 

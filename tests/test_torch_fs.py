@@ -10,8 +10,9 @@ against the reference's on the CPU.
   the port (``port_copy``), none skipped. ``test_extent_store``'s
   ``test_block_crcs_match_tpu_kernel`` holds the store's block CRCs
   against the port's plain ``crc32_blocks``; ``test_packet_mux``'s wire
-  view is the reference's ``cli._wire_view`` reading the port's
-  ``/metrics`` text (the CLI waits for a later slice);
+  view is the port's ``cli._wire_view`` reading the port's ``/metrics``
+  text (``tests/test_torch_operators.py`` holds each view against the
+  reference's on the same text);
 - mixed clusters over real sockets: the port's ``FileSystem`` against the
   reference's master, metanodes and datanodes, and the reverse, over the
   packet plane and both native read planes; a write in one package and
@@ -55,12 +56,6 @@ def _port_qos_still(monkeypatch):
     monkeypatch.setattr(qos.DEFAULT, "_last_refresh", float("-inf"))
 
 
-def _wire_view(text):
-    from cubefs_tpu.cli import _wire_view as ref_view
-
-    return ref_view(text)
-
-
 FS_E2E = port_copy("test_fs_e2e")
 MODULES = {
     "test_fs_e2e": FS_E2E,
@@ -68,7 +63,7 @@ MODULES = {
     "test_extent_store": port_copy("test_extent_store", crc32_kernel=types.SimpleNamespace(
         crc32_blocks=lambda a: crc32_kernel.crc32_blocks(torch.from_numpy(a)).numpy())),
     "test_packet": port_copy("test_packet"),
-    "test_packet_mux": port_copy("test_packet_mux", _wire_view=_wire_view),
+    "test_packet_mux": port_copy("test_packet_mux"),
     "test_native_data": port_copy("test_native_data", FsCluster=FS_E2E.FsCluster),
     "test_native_meta": port_copy("test_native_meta"),
     "test_datanode_raft": port_copy("test_datanode_raft"),

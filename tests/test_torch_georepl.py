@@ -5,8 +5,8 @@ held against the reference's on the CPU.
 - every scenario of the reference's ``tests/test_georepl.py`` runs on the
   port (``port_copy``), the seeded blackout drill included. Its CLI view,
   ``test_status_and_cli_geo_view``, reads the port's ``/metrics`` text
-  with the reference's ``cli._geo_view`` (the port's ``cli.py`` waits for
-  ROADMAP.md §1 item 5);
+  with the port's ``cli._geo_view`` (``tests/test_torch_operators.py``
+  holds each view against the reference's on the same text);
 - a ship batch made by either package's ``GeoShipper`` is the same bytes
   and is applied by the other's ``GeoApplier`` to the same digest; a
   partition snapshot served by either package's gateway over the packet
@@ -31,13 +31,7 @@ from cubefs_tpu_torch.utils.retry import FakeClock
 from test_torch_raft import cases, port_copy, run_scenario
 
 
-def _geo_view(text):
-    from cubefs_tpu.cli import _geo_view as ref_view
-
-    return ref_view(text)
-
-
-GEOREPL = port_copy("test_georepl", _geo_view=_geo_view)
+GEOREPL = port_copy("test_georepl")
 
 
 @pytest.fixture(autouse=True)

@@ -2,9 +2,9 @@
 ``s3policy``, ``authnode``, ``s3auth``, ``s3ext``, ``s3version`` and
 ``s3audit``) held against the reference's on the CPU: every scenario of
 the reference's ``test_gateways``, ``test_auth`` and
-``test_s3_versioning`` runs on the port (``port_copy``), none skipped but
-one of ``test_gateways`` that needs a module of a later slice:
-``test_launcher_and_cli_end_to_end`` (``cli.py``, ROADMAP.md §1 item 5).
+``test_s3_versioning`` runs on the port (``port_copy``), none skipped;
+``test_gateways``' ``test_launcher_and_cli_end_to_end`` (the CLI's) runs in
+``tests/test_torch_operators.py``.
 ``test_fuse_chmod_and_rename_clobber`` mounts the port's volume through
 the kernel under ``test_torch_fuse.fuse_guard``, which detaches a mount
 that outlives its deadline.
@@ -18,7 +18,7 @@ from test_torch_fs import FS_E2E, _port_qos_still, run_in  # noqa: F401  (autous
 from test_torch_fuse import fuse_guard
 from test_torch_raft import port_copy, scenarios
 
-LATER = {"test_launcher_and_cli_end_to_end"}
+LATER = {"test_launcher_and_cli_end_to_end"}  # run by tests/test_torch_operators.py
 
 GATEWAYS = port_copy("test_gateways", FsCluster=FS_E2E.FsCluster)
 MODULES = {

@@ -253,7 +253,10 @@ def test_replicated_node_directories_open_in_both_packages(ref, tmp_path, direct
             want[key] = bytes([i]) * 9
         assert tools._kv_call(pool, nodes, "shard_split",
                               {"shard_id": 1, "child_id": 3})[0]["child_id"] == 3
-        wait_for(lambda: all(3 in sn.shards for sn in nodes), what="the split everywhere")
+        # the child's raft group too: stopping a node while a split's
+        # apply still adds that group races the node's stop
+        wait_for(lambda: all(3 in sn.shards and 3 in sn.rafts for sn in nodes),
+                 what="the split everywhere")
     finally:
         for sn in nodes:
             sn.stop()
@@ -364,3 +367,66 @@ def test_suspect_dead_shardnodes_uses_the_heartbeat_window(ref, monkeypatch):
         cm._sn_heartbeat["sn9"] -= 1.0  # not referenced by any space
         out.append((cm.suspect_dead_shardnodes(), cm.shardnode_last_seen("sn2")))
     assert out[0] == out[1] == (["sn1"], None)
+
+
+# ---------------- a replica swap after a split ----------------
+
+def test_spare_of_a_split_child_gets_its_items_after_the_parent_compacts(tmp_path, monkeypatch):
+    """A shard born of a split holds items that its own raft log never
+    carried: the parent's split entry moved them in. Once the parent's
+    log is compacted past that entry, a spare that replaces a member
+    learns the parent from a snapshot taken after the split, so only the
+    child's group can give it the child's items: the leader of a group
+    begun with state ships a snapshot, not the log from index 1, to a
+    member that needs the log from its start."""
+    monkeypatch.setattr(raftlib.RaftNode, "COMPACT_THRESHOLD", 1 << 30)  # compacted below
+    pool = rpc.NodePool()
+    addrs = [f"sn{i}" for i in range(4)]
+    replicas, spare = addrs[:3], addrs[3]
+    nodes = {}
+    for i, a in enumerate(addrs):
+        nodes[a] = shardnode.ShardNode(i, addr=a, node_pool=pool, data_dir=str(tmp_path / a))
+        pool.bind(a, nodes[a])
+    try:
+        for a in replicas:
+            nodes[a].create_shard(1, "", "", peers=replicas)
+        live = [nodes[a] for a in replicas]
+        want = {f"k{i:02d}": bytes([i]) * 7 for i in range(40)}
+        for key, value in want.items():
+            TOOLS._kv_call(pool, live, "kv_put", {"shard_id": 1, "key": key}, value)
+        split = TOOLS._kv_call(pool, live, "shard_split", {"shard_id": 1, "child_id": 5})[0]
+        index = wait_for(lambda: leader_raft(live, 1) and leader_raft(live, 1).last_applied,
+                         what="the split applied")
+        wait_for(lambda: all(sn.rafts[1].last_applied >= index and 5 in sn.rafts for sn in live),
+                 what="the split on every replica")
+        for sn in live:
+            sn.rafts[1].take_snapshot()  # the parent's log now begins after the split
+            assert sn.rafts[1].log_base >= index
+        victim = replicas[1]
+        nodes[victim].stop()
+        pool.bind(victim, object())  # a dead member: every call to it fails
+        new = [spare if a == victim else a for a in replicas]
+        for sid, start, end in ((1, "", split["split_key"]), (5, split["split_key"], "")):
+            nodes[spare].create_shard(sid, start, end, peers=new)  # the repair worker's swap
+            for a in new:
+                nodes[a].update_shard_peers(sid, new)
+        members = [nodes[a] for a in new]
+        wait_for(lambda: sum(nodes[spare].shards[s].count() for s in (1, 5)) == len(want),
+                 timeout=20.0, what="the spare to hold every item")
+        for sid in (1, 5):
+            assert dict(nodes[spare].shards[sid].items_in("", "")) == dict(
+                members[0].shards[sid].items_in("", ""))
+        for key, value in want.items():
+            sid = 5 if key >= split["split_key"] else 1
+            assert TOOLS._kv_call(pool, members, "kv_get", {"shard_id": sid, "key": key},
+                                  timeout=15.0)[1] == value
+    finally:
+        for a, sn in nodes.items():
+            if a != replicas[1]:
+                sn.stop()
+
+
+def leader_raft(nodes, sid):
+    rafts = [sn.rafts[sid] for sn in nodes if sid in sn.rafts
+             and sn.rafts[sid].status()["role"] == "leader"]
+    return rafts[0] if len(rafts) == 1 else None

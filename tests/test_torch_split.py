@@ -19,7 +19,10 @@ reference's on the CPU.
 - over sockets, the master's per-replica calls (a split's target create,
   a merge's donor drop, the quota sweep's flags) reach the replica they
   name after its pool learned a partition's leader for a follower's
-  address (the reference sends them to that leader instead).
+  address (the reference sends them to that leader instead);
+- a client holding the map from before a split reads the moved inodes
+  through the donor's native read plane, which redirects (453) where the
+  reference's answers ENOENT.
 
 Tolerance: exact equality. Every wait is a condition polled against a
 deadline.
@@ -384,3 +387,95 @@ def test_split_target_lands_on_every_replica_over_sockets(http_fs):
     assert not any(res["target_pid"] in m.partitions for m in c.metas)
     fs.meta.refresh_view(force=True)
     assert sorted(fs.readdir("/d")) == sorted(f"f{j}" for j in range(24))
+
+
+def _native_fs_cluster(pkg, root):
+    """A master, 3 metanodes (each with its packet and native read
+    planes) and 3 datanodes of one package, each behind its own HTTP
+    server on 127.0.0.1; returns (master, metanodes, view, closers)."""
+    import importlib
+
+    mods = {m: importlib.import_module(f"{pkg}.{m}") for m in
+            ("fs.master", "fs.metanode", "fs.datanode", "utils.rpc")}
+    rpc = mods["utils.rpc"]
+    closers, metas = [], []
+    pool = rpc.NodePool()
+    master = mods["fs.master"].Master(pool, replicas=3)
+
+    def serve(svc):
+        srv = rpc.RpcServer(svc).start()
+        closers.append(srv.stop)
+        return srv.addr
+
+    master_addr = serve(master)
+    for i in range(3):
+        node = mods["fs.metanode"].MetaNode(i, data_dir=str(root / f"meta{i}"), node_pool=pool)
+        node.addr = serve(node)
+        psrv = node.serve_packets()
+        closers.append(psrv.stop)
+        master.register_metanode(node.addr, packet_addr=psrv.addr, read_addr=node.serve_native())
+        metas.append(node)
+        closers.insert(0, node.stop)
+    for i in range(3):
+        node = mods["fs.datanode"].DataNode(i, str(root / f"data{i}"), "pending", pool)
+        node.addr = serve(node)
+        master.register_datanode(node.addr)
+        closers.insert(0, node.stop)
+    return master, master_addr, metas, master.create_volume("vol1", mp_count=1, dp_count=1), closers
+
+
+@pytest.mark.parametrize("pkg", ["cubefs_tpu_torch", "cubefs_tpu"])
+def test_a_pre_split_map_reads_moved_inodes_through_the_native_plane(pkg, tmp_path):
+    """A client that still holds the partition map from before a split
+    asks the donor's native read plane for inodes the split moved. The
+    port's plane redirects (453, the target pid) as the Python read
+    fence does, and the client follows to the target; the reference's
+    answers ENOENT from the trees the donor dropped (a fault the port
+    repairs, so the reference's answer is pinned beside it)."""
+    import importlib
+
+    fsmod = importlib.import_module(f"{pkg}.fs.client")
+    rpc = importlib.import_module(f"{pkg}.utils.rpc")
+    master, master_addr, metas, view, closers = _native_fs_cluster(pkg, tmp_path)
+    clients = []
+    try:
+        assert view["meta_read_addrs"]
+        fs = fsmod.FileSystem(view, rpc.NodePool(), master_addr=master_addr)
+        clients.append(fs)
+        deadline = time.monotonic() + 30
+        while True:
+            try:
+                fs.mkdir("/d")
+                break
+            except Exception:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.1)
+        for j in range(24):
+            fs.write_file(f"/d/f{j}", bytes([j]) * 100)
+        inos = [fs.resolve(f"/d/f{j}") for j in range(24)]
+        res = master.split_engine().split("vol1")
+        moved = [i for i in inos if i >= res["split_ino"]]
+        assert moved and res["donor_dropped"]
+        stale = fsmod.FileSystem(view, rpc.NodePool(), master_addr=master_addr)
+        clients.append(stale)
+        native0 = sum(m._native_lib.ms_op_count(m._native_h) for m in metas)
+        answers = {}
+        for ino in moved:
+            try:
+                answers[ino] = stale.meta.inode_get(ino)["ino"]
+            except fsmod.FsError as e:
+                answers[ino] = e.errno
+        assert sum(m._native_lib.ms_op_count(m._native_h) for m in metas) > native0
+        if pkg == "cubefs_tpu_torch":
+            assert answers == {i: i for i in moved}
+            assert [stale.read_file(f"/d/f{j}") for j in range(24)] == [
+                bytes([j]) * 100 for j in range(24)]
+        else:
+            assert answers == {i: 2 for i in moved}  # ENOENT
+    finally:
+        for c in clients:
+            for cl in (*c.meta._packet_clients.values(), *c.data._packet_clients.values()):
+                cl.close()
+        for close in closers:
+            close()

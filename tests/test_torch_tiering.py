@@ -6,8 +6,10 @@ port's blob plane on ``device="cpu"`` (kernel A's plain version).
   port (``port_copy``), the chaos drill's kill at every phase boundary
   and the WAL replay of a half-committed transition included, and the
   two that drive ``fs/remotecache.py``'s ``FlashNode`` (burn-aware
-  eviction, untagged entries as a plain LRU). The CLI view is the reference's ``cli._tiering_view``, here also reading the
-  port's own ``/metrics`` text;
+  eviction, untagged entries as a plain LRU). The CLI view is the port's
+  ``cli._tiering_view`` reading the port's own ``/metrics`` text
+  (``tests/test_torch_operators.py`` holds each view against the
+  reference's on the same text);
 - a twin migration: the same aged file in both packages, each on its own
   blob plane, gives equal blob bytes on every disk, equal locations and
   equal cold reads, healthy and degraded;
@@ -48,18 +50,11 @@ def _port_qos_still(monkeypatch):
     monkeypatch.delenv("CUBEFS_UNTIER_HOT", raising=False)
 
 
-def _tiering_view(text):
-    from cubefs_tpu.cli import _tiering_view as ref_view
-
-    return ref_view(text)
-
-
 TIERING = port_copy(
     "test_tiering",
     AccessConfig=functools.partial(access.AccessConfig, device="cpu"),
     AccessHandler=access.AccessHandler,
-    BlobNode=functools.partial(blobnode.BlobNode, device="cpu"),
-    _tiering_view=_tiering_view)
+    BlobNode=functools.partial(blobnode.BlobNode, device="cpu"))
 
 
 @pytest.mark.parametrize("name", scenarios(TIERING))
