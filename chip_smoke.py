@@ -116,6 +116,12 @@ worker here rebuilding each unit), ``fsck`` finding and healing a
 replica mismatch and the FS scrubber a second, a snapshot restored to
 the live state, the dial prober and the blob bench, and in this process
 ``bench_codec``'s batched and repair legs and ``tier_ab`` on the card.
+Then the file-system plane's benchmark harness and the build check of the
+kernels (phase ``fs_bench``): ``python -m cubefs_tpu_torch.tool.bench_fs``
+(the mdtest/fio run, the wire, split and geo A/Bs) and ``python -m
+cubefs_tpu_torch.tool.aot_cuda`` (the three sources compiled for
+``sm_90a`` with nvcc alone, ptxas' figures for every kernel symbol), each
+a process of its own, held by their identity fields.
 Each phase prints one JSON line; any failure, in any rank, raises.
 
 The last lines are the kernels' record, the card's name and power limit
@@ -152,9 +158,6 @@ MIB = 1 << 20
 SHARD = 4 * MIB  # EC12P4 production shard size
 MSR_PAYLOAD = 24 * MIB  # an EC6P6MSR blob: shards of 4 MiB + 2, beta = 699,051
 PUT = MIB  # a small blob PUT, as the access layer sends them concurrently
-# NVIDIA H100 SXM data sheet, dense, at the 700 W limit
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
 KERNEL_REPS = 10
 PLAIN_REPS = 3
 MAIN_KERNELS = ("gf_apply", "crc32_blocks")  # repair_step and Encoder run these
@@ -246,6 +249,22 @@ OPS_BITFLIPS = 4
 OPS_BENCH_COUNT, OPS_BENCH_SIZE, OPS_BENCH_CONC = 16, 8 * MIB, 4
 OPS_SUBMITTERS, OPS_ITERS, OPS_REPAIR_STRIPES = 32, 50, 96
 LAUNCH_B = 'cubefs_codec_kernel_launches_total{kernel="crc32_blocks"}'
+# phase fs_bench: the file-system plane's benchmark harness and the sm_90a
+# build check, each a process of its own (name, module, arguments): the
+# mdtest/fio run at the harness's defaults (200 files, 16 MiB, 8 threads),
+# the wire A/B at its defaults, the split and geo A/Bs at 1 s windows and
+# one round (cut from 4 s x 2 rounds and 1 s x 3 rounds), and the build
+# check of the three kernel sources
+BENCH_FS = "cubefs_tpu_torch.tool.bench_fs"
+FS_BENCH_RUNS = (
+    ("mdtest_fio", BENCH_FS, ()),
+    ("wire_ab", BENCH_FS, ("--wire-ab",)),
+    ("split_ab", BENCH_FS, ("--split-ab", "--secs", "1", "--rounds", "1")),
+    ("geo_ab", BENCH_FS, ("--geo-ab", "--secs", "1", "--rounds", "1")),
+    ("aot_cuda", "cubefs_tpu_torch.tool.aot_cuda", ()),
+)
+MDTEST_KEYS = ("dir_create_ops", "dir_stat_ops", "small_file_create_tps", "small_file_read_tps",
+               "file_stat_ops", "seq_write_mbps", "seq_read_mbps", "file_remove_ops")
 S3_OWNER = {"access_key": "AKIDSMOKEOWNER000001", "secret_key": "smoke-owner-secret-key"}
 S3_STRANGER = {"access_key": "AKIDSMOKESTRANGER001", "secret_key": "smoke-stranger-secret"}
 # the C and D instantiations the kernels' record reports: (case, extract, probe, grid)
@@ -255,24 +274,6 @@ RECORDED_BM = (("tuning_rows_2x12_B4", "bcast", None, "flat"),
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def ptxas_registers(log: str) -> dict[str, int]:
-    """Mangled kernel name -> registers per thread, from the ``-Xptxas -v``
-    report nvcc wrote while building a source (none if the library was
-    built without it)."""
-    regs, name = {}, None
-    if not os.path.exists(log):
-        return regs
-    with open(log) as f:
-        for ln in f:
-            m = re.search(r"Compiling entry function '([^']+)'", ln)
-            if m:
-                name = m.group(1)
-            m = re.search(r"Used (\d+) registers", ln)
-            if m and name:
-                regs[name], name = int(m.group(1)), None
-    return regs
 
 
 def sharded_summary(run: dict, per_rank: list[dict]) -> dict:
@@ -4545,6 +4546,102 @@ def operators_phase(dev, card: str, *, files: int = OPS_FILES, file_size: int = 
             "checks": checks}
 
 
+def fs_bench_checks(name: str, rc, out) -> dict[str, bool]:
+    """One tool run's checks, from its own fields. The mdtest/fio run, the
+    wire A/B and the build check must exit 0. The split and geo A/Bs exit
+    1 when their speed verdict (a timing A/B) fails as well as when their
+    identity does: there the checks are the identity fields, the legs'
+    errors, and an exit code that agrees with the summary's verdict (a run
+    that died prints no record)."""
+    if out is None:
+        return {"printed_a_record": False}
+    if name == "mdtest_fio":
+        return {"exit_0": rc == 0, "keys": list(out) == list(MDTEST_KEYS),
+                "rates_above_0": all(out.get(k, 0) > 0 for k in MDTEST_KEYS)}
+    if name == "wire_ab":
+        s = out["summary"]
+        return {"exit_0": rc == 0, "fsm_digest_identical": s["fsm_digest_identical"],
+                "blob_bytes_identical": s["blob_bytes_identical"],
+                "abba": [leg["mux"] for leg in out["legs"]] == [True, False, False, True]}
+    if name == "split_ab":
+        s = out["summary"]
+        return {"exit_agrees_with_verdict": rc == (0 if s["ok"] else 1),
+                "door_off_identical": s["door_off_identical"],
+                "identity_bit_identical": out["identity"]["bit_identical"],
+                "sweeps_inert": out["identity"]["sweeps_inert"],
+                # a create whose client table still names a partition the
+                # sweep merged away answers this 404 until the client
+                # re-reads its view, in both packages; any other error fails
+                "leg_errors_only_merged_away_404": all(
+                    re.search(r"RpcError: rpc 404: meta partition \d+ not on node \d+$", e)
+                    for leg in [*(x for legs in out["legs"].values() for x in legs),
+                                out["static64_ceiling"], out["loadgen_probe"]]
+                    for e in leg["errors"])}
+    if name == "geo_ab":
+        s, lag, off = out["summary"], out["steady_lag"], out["geo_off_digest"]
+        return {"exit_agrees_with_verdict": rc == (0 if s["ok"] else 1),
+                "geo_off_identical": off["geo_off_identical"],
+                "follower_converged": off["follower_converged"],
+                "lag_drained": lag["drained"], "lag_digests_converged": lag["digests_converged"],
+                "lag_no_gaps": lag["counters"]["gap"] == 0,
+                "mutation_bounced_452": out["follower_read"]["mutation_bounced_452"]}
+    from cubefs_tpu_torch.ops import _build
+
+    built = {k["symbol"]: k for k in out["kernels"]}
+    return {"exit_0": rc == 0, "all_ok": out["all_ok"], "target_sm_90a": out["target"] == "sm_90a",
+            **{f"{sym}_compiled": sym in built and built[sym]["compiled"]
+               and built[sym]["max_registers"] > 0 and built[sym]["cubin_bytes"] > 0
+               for sym in _build.SYMBOLS}}
+
+
+def fs_bench_phase(card: str, *, runs=FS_BENCH_RUNS, timeout: float = 300.0) -> dict:
+    """Phase ``fs_bench``: the port's file-system benchmark harness
+    (``tool/bench_fs.py``) and the sm_90a build check (``tool/aot_cuda.py``),
+    each ``python -m`` in a process of its own, as their users run them
+    (the harness forks client and server processes, which a process that
+    has initialised CUDA must not do; neither tool imports torch). Each
+    child gets a temporary directory of its own as ``TMPDIR``, removed
+    after it. Returns the record: per run its arguments, exit code,
+    seconds and printed JSON (the build check's without its per-entry
+    ptxas figures), and ``checks`` (``fs_bench_checks``)."""
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    rec: dict = {"phase": "fs_bench", "card": card, "runs": {}, "checks": {}}
+    for name, module, args in runs:
+        tmp = tempfile.mkdtemp(prefix=f"smoke-fsbench-{name}-")
+        argv = [sys.executable, "-m", module, *args]
+        env = {**os.environ, "TMPDIR": tmp}
+        if module.endswith("aot_cuda"):
+            argv += ["--out-dir", os.path.join(tmp, "aot_sm90a")]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(argv, cwd=root, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+            rc = proc.returncode
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)  # the tool and the processes it forked
+            stdout, stderr = proc.communicate()
+            rc = None
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        try:
+            out = json.loads(stdout)
+        except ValueError:
+            out = None
+        run = {"argv": argv[1:], "rc": rc, "seconds": time.perf_counter() - t0, "result": out}
+        if rc != 0:
+            run["stderr_tail"] = stderr[-2000:]
+        if out is not None and name == "aot_cuda":
+            run["result"] = {**out, "kernels": [{k: v for k, v in kern.items() if k != "entries"}
+                                                for kern in out["kernels"]]}
+        rec["runs"][name] = run
+        rec["checks"].update({f"{name}.{k}": bool(v)
+                              for k, v in fs_bench_checks(name, rc, out).items()})
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -4564,6 +4661,10 @@ def main() -> int:
                                       gf_cuda, rs_kernel)
     from cubefs_tpu_torch.parallel import dryrun, launch
     from cubefs_tpu_torch.tuning import gf_tuning
+    # the least time of a function (bytes over the HBM rate, operations over
+    # the int8 peak) and ptxas' report, shared with the build check
+    from cubefs_tpu_torch.tool.aot_cuda import (HBM_BYTES_PER_S, INT8_OPS_PER_S,
+                                               bound, ptxas_registers)
     from cubefs_tpu_torch.utils import trace as tracelib
     from cubefs_tpu_torch.utils.benchtime import device_ms, kernel_ms
     from cubefs_tpu_torch.utils.benchtime import timed_ms as time_ms
@@ -4578,17 +4679,6 @@ def main() -> int:
 
     def rand(*shape) -> torch.Tensor:
         return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
-
-    # The least time of a function: the larger of its bytes (inputs read
-    # once, outputs written once) over the HBM rate and its operations over
-    # the peak of their type. A GF(2^8) multiply-add, or one byte's step of
-    # a table CRC, has no unit of its own on the card; each is counted as
-    # two int8 operations at the int8 peak, which credits the function with
-    # the fastest integer rate the card has.
-    def bound(nbytes: int, int8_ops: int) -> tuple[float, str]:
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = int8_ops / INT8_OPS_PER_S * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
     def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
@@ -5626,7 +5716,17 @@ def main() -> int:
     if failed:
         raise AssertionError(f"operators checks failed: {failed}")
 
-    # -- 22. the sharded step: 8 ranks over torch.distributed ----------------
+    # -- 22. the file-system benchmark harness and the sm_90a build check ----
+    # Host tools, each a process of its own (the harness forks its clients
+    # and servers); nothing in them launches a kernel. The build check
+    # compiles the three kernel sources again, into a directory of its own.
+    fsb = fs_bench_phase(card)
+    emit(fsb)
+    failed = [k for k, v in fsb["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"fs_bench checks failed: {failed}")
+
+    # -- 23. the sharded step: 8 ranks over torch.distributed ----------------
     # Built above, in this process: the ranks find the libraries and run
     # no nvcc. Every rank runs A and B on its own block; the collectives
     # go through gloo, which stages CUDA buffers through host memory and
@@ -5649,7 +5749,7 @@ def main() -> int:
     if sh_bad:
         raise AssertionError(f"sharded step checks failed: {sh_bad}")
 
-    # -- 23. the kernels' record --------------------------------------------
+    # -- 24. the kernels' record --------------------------------------------
     gf_main, crc_main = gf_results[0], crc_results[0]
     bm_main, probe_main = (next(x for x in bm_results
                                 if (x["case"], x["extract"], x["probe"], x["grid"]) == key)

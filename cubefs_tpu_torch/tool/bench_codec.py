@@ -41,6 +41,7 @@ from .. import device as devlib
 from ..codec.batcher import BatchCodec
 from ..ops import msr, rs_kernel
 from ..utils import metrics
+from .bench_fs import merge_artifact  # the shared record's writer, with the FS bench
 
 
 def _pct(xs, p):
@@ -62,23 +63,6 @@ def _settle(engine: str, dev: torch.device) -> None:
     """Wait for the card's queued work (a no-op for host stripes)."""
     if engine == "cuda" and dev.type == "cuda":
         torch.cuda.current_stream(dev).synchronize()
-
-
-def merge_artifact(path: str, section: str, data: dict) -> None:
-    """Read-merge-write one section of a shared JSON record, so the codec
-    and file-system benches can fill their halves independently (the
-    reference keeps this in ``tool/bench_fs.py``)."""
-    existing: dict = {}
-    if os.path.exists(path):
-        try:
-            with open(path) as f:
-                existing = json.load(f)
-        except (OSError, ValueError):
-            existing = {}
-    existing[section] = data
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "w") as f:
-        f.write(json.dumps(existing, indent=1) + "\n")
 
 
 def _run_leg(batched: bool, submitters: int, iters: int, n: int, m: int,

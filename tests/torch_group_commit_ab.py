@@ -12,9 +12,16 @@ One JSON line a run: the package, the raft entries, drains and WAL
 fsyncs of the 192 creates, whether the term moved during them, and the
 seconds to the masters' first leader; then a summary by package. The
 scenario's bounds are 64 entries and 64 fsyncs.
+
+``--sizes`` also records each drain's width (a wrapper around the
+coalescer's ``_SubmitBatcher._land``, in both packages alike: it adds a
+clock read to every drain). ``--port-ref-observe`` adds a third kind of
+run, the port with the reference's ``Histogram.observe`` (one call, no
+``observe_many``).
 """
 
 import argparse
+import bisect
 import json
 import os
 import subprocess
@@ -38,8 +45,29 @@ def _modules(pkg: str):
     return mn, Master, metrics, rpc
 
 
-def one_run(pkg: str, root: str) -> dict:
+def _reference_observe(self, value: float, **labels) -> None:
+    k = self._key(labels)
+    with self._lock:
+        s = self._series.get(k)
+        if s is None:
+            s = self._series[k] = {"count": 0, "sum": 0.0, "buckets": [0] * len(self.BUCKETS)}
+        s["count"] += 1
+        s["sum"] += value
+        for j in range(bisect.bisect_left(self.BUCKETS, value), len(self.BUCKETS)):
+            s["buckets"][j] += 1
+
+
+def one_run(pkg: str, root: str, sizes: list | None = None) -> dict:
     mn, Master, metrics, rpc = _modules(pkg)
+    if sizes is not None:
+        land = mn._SubmitBatcher._land
+
+        def sized(self, batch):
+            t0 = time.perf_counter()
+            land(self, batch)
+            sizes.append((len(batch), time.perf_counter() - t0))
+
+        mn._SubmitBatcher._land = sized
     pool = rpc.NodePool()
     masters = [Master(pool, data_dir=f"{root}/{n}", me=n, peers=["ma", "mb", "mc"],
                       allow_single_node=True, replicas=1) for n in ("ma", "mb", "mc")]
@@ -89,6 +117,9 @@ def one_run(pkg: str, root: str) -> dict:
     out = {"pkg": pkg, "entries": entries, "drains": drains, "fsyncs": fsyncs,
            "term_moved": leader.rafts[7].status()["term"] != term, "errors": errors[:2],
            "masters_leader_s": round(leader_s, 3)}
+    if sizes is not None:
+        out["sizes"] = [n for n, _ in sizes]
+        out["drain_ms"] = [round(dt * 1e3, 2) for _, dt in sizes]
     for node in nodes:
         node.stop()
     return out
@@ -98,19 +129,30 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--runs", type=int, default=20, help="runs of each package")
     ap.add_argument("--busy", type=int, default=11, help="processes spinning on the CPU")
-    ap.add_argument("--one", choices=("port", "ref"), help=argparse.SUPPRESS)
+    ap.add_argument("--sizes", action="store_true", help="record each drain's width")
+    ap.add_argument("--port-ref-observe", action="store_true",
+                    help="also run the port with the reference's Histogram.observe")
+    ap.add_argument("--one", choices=("port", "ref", "port-ref-observe"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
         sys.path.insert(0, ROOT)
+        pkg = "ref" if args.one == "ref" else "port"
+        if args.one == "port-ref-observe":
+            from cubefs_tpu_torch.utils import metrics
+
+            metrics.Histogram.observe = _reference_observe
         with tempfile.TemporaryDirectory() as d:
-            print(json.dumps(one_run(args.one, d)), flush=True)
+            out = one_run(pkg, d, [] if args.sizes else None)
+        print(json.dumps({**out, "pkg": args.one}), flush=True)
         os._exit(0)  # leftover daemon threads of the stopped nodes
+    kinds = ("port", "port-ref-observe", "ref") if args.port_ref_observe else ("port", "ref")
     spin = [subprocess.Popen([sys.executable, "-c", "while True: pass"]) for _ in range(args.busy)]
     rows = []
     try:
         for _ in range(args.runs):
-            for pkg in ("port", "ref"):
-                out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", pkg],
+            for pkg in kinds:
+                out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", pkg,
+                                      *(["--sizes"] if args.sizes else [])],
                                      capture_output=True, text=True, timeout=300)
                 row = json.loads(out.stdout.strip().splitlines()[-1])
                 print(json.dumps(row), flush=True)
@@ -119,11 +161,12 @@ def main() -> int:
         for p in spin:
             p.kill()
             p.wait()
-    for pkg in ("port", "ref"):
+    for pkg in kinds:
         mine = [r for r in rows if r["pkg"] == pkg]
         print(json.dumps({"summary": pkg, "runs": len(mine),
                           "entries": [min(r["entries"] for r in mine),
                                       max(r["entries"] for r in mine)],
+                          "over_24_entries": sum(r["entries"] > 24 for r in mine),
                           "over_the_bound": sum(r["entries"] > 64 or r["fsyncs"] > 64
                                                 for r in mine),
                           "term_moved": sum(r["term_moved"] for r in mine),
