@@ -21,9 +21,11 @@ launched both of its kernels. Then the codec families (EC16P20L2 and
 EC6P6MSR stripes at full width, the pinned EC16P20L2 fixture, the MSR
 sub-shard repair of every slot with a corrupted helper symbol) and the
 codec batcher (concurrent small PUTs from 32 threads, of one size and
-of mixed sizes), each held against the plain version and the unbatched
-launches, with the launch
-counts of each path read from zero. It times the entry points end to
+of mixed sizes) and its dp split (phase ``batcher_dp``: an EC12P4 step
+of 8 stripes at 4 MiB shards cut over the card named twice, device
+tensors and host stripes, encode and reconstruct, and a missing card
+refused), each held against the plain version and the unbatched
+launches, with the launch counts of each path read from zero. It times the entry points end to
 end. Then it drives the GF tuning path (``tuning/gf_tuning.py``, both
 rounds), which runs the bit-matrix tensor-core kernels, and checks that
 it launched them. Last, the sharded codec step (``parallel/``): 8 ranks
@@ -123,6 +125,11 @@ cubefs_tpu_torch.tool.aot_cuda`` (the three sources compiled for
 ``sm_90a`` with nvcc alone, ptxas' figures for every kernel symbol), each
 a process of its own, held by their identity fields.
 Each phase prints one JSON line; any failure, in any rank, raises.
+Each phase has a deadline (``PHASE_BUDGETS``, about 1.5 times its time
+in a whole run on the card) under one for the whole script
+(``SCRIPT_BUDGET``): the ``Watchdog`` re-armed at each phase prints
+``{"phase": ..., "overran_s": ...}`` and every thread's stack when one
+passes, stops every process the script started and exits 1.
 
 The last lines are the kernels' record, the card's name and power limit
 as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -159,14 +166,16 @@ SHARD = 4 * MIB  # EC12P4 production shard size
 MSR_PAYLOAD = 24 * MIB  # an EC6P6MSR blob: shards of 4 MiB + 2, beta = 699,051
 PUT = MIB  # a small blob PUT, as the access layer sends them concurrently
 KERNEL_REPS = 10
+DP_STRIPES = 8  # phase batcher_dp: a split step of 8 EC12P4 stripes, 384 MiB in
 PLAIN_REPS = 3
 MAIN_KERNELS = ("gf_apply", "crc32_blocks")  # repair_step and Encoder run these
 # the sharded step's meshes on 8 ranks: the mixed mesh at the repair case's
-# width, then the reference dryrun's dp-only fleet (192 MiB of survivors)
+# width, then the reference dryrun's dp-only fleet at its widths (32 stripes,
+# 96 MiB of survivors: cut from its 64 to make room for phase batcher_dp)
 SHARDED_RUNS = (
     {"name": "mixed", "dims": {"dp": 2, "tp": 2, "sp": 2}, "seed": SEED, "b": 4, "n": 12,
      "m": 4, "s": SHARD, "bad": [1, 7]},
-    {"name": "dp_only", "dims": {"dp": 8, "tp": 1, "sp": 1}, "seed": SEED + 1, "b": 64,
+    {"name": "dp_only", "dims": {"dp": 8, "tp": 1, "sp": 1}, "seed": SEED + 1, "b": 32,
      "n": 12, "m": 4, "s": 256 << 10, "bad": [2, 13]},
 )
 # phase service: the codec role as its users start it ("listen_port": 0 takes
@@ -182,72 +191,81 @@ BEYOND_TABLE = 64 * MIB
 ENGINE_THREADS, ENGINE_PUTS = 32, 8
 ENGINES_CFG = {"role": "codec", "listen_port": 0, "ec_engine": "auto"}
 BLOB_PUT = 64 * MIB  # phase blob: an object of eight 8 MiB blobs, EC12P4 by policy
-BLOB_PUTS = 8  # per engine
+BLOB_PUTS = 4  # per engine (cut from 8 for phase batcher_dp)
 BLOB_MSR = 24 * MIB  # one EC6P6MSR object: three 8 MiB blobs
 BLOB_NODES, BLOB_DISKS = 6, 3  # EC12P4's 16 units and 2 spares
-ROLES_PUTS = 8  # phase roles: 64 MiB objects PUT, read back, read degraded
-RAFT_PUTS = 4  # phase raft: 64 MiB objects PUT on each side of a clustermgr leader kill
-INTEGRITY_OBJECTS = 16  # phase integrity: 64 MiB objects, 1 GiB of user data
+# phases roles, raft and integrity: 64 MiB objects PUT, read back, read
+# degraded (cut from 8, 4 and 16 for phase batcher_dp)
+ROLES_PUTS = 4  # phase roles
+RAFT_PUTS = 2  # phase raft: on each side of a clustermgr leader kill
+INTEGRITY_OBJECTS = 8  # phase integrity: 512 MiB of user data
 INTEGRITY_GETS = 8  # foreground GETs alone and under a full scrub pass
-# phase shardnode: 4 MiB of 1 KiB items (cut from 16,384 items when phase
-# clients was added, and from 8,192 when phase operators was: the script
-# ran 1,130 s with it, its limit 1,200)
-SN_ITEMS, SN_VALUE, SN_THREADS = 4096, 1024, 8
-# phase fs: 16 files of 64 MiB from 4 writers (1 GiB of user data, 3 GiB on
-# the datanodes at 3 replicas), 8 threads x 128 files of 4 KiB (cut from
-# 1,024 a thread: 8,192 creates, renames and stats took 243 s on the card's
-# host; and from 256 when phase operators was added), 4 files tiered
-FS_FILES, FS_FILE, FS_WRITERS = 16, 64 * MIB, 4
-FS_META_THREADS, FS_META_FILES, FS_META_SIZE = 8, 128, 4096
-FS_TIER = 4
-# phase s3: the objectnode role over the same planes; 8 objects of 64 MiB
-# from 4 threads (cut from 16 when phase operators was added), one
-# multipart object of 256 MiB in 32 parts of 8 MiB (the AWS CLI's
-# multipart_chunksize), 8 threads x 128 objects of 4 KiB (phase fs's cut),
-# listings and DeleteObjects in pages of 1,000 (S3's default max-keys and
-# its batch cap), 4 objects tiered
-S3_OBJECTS, S3_OBJECT, S3_WRITERS = 8, 64 * MIB, 4
-S3_MULTIPART, S3_PART = 256 * MIB, 8 * MIB
+# phase shardnode: 1 MiB of 1 KiB items (cut from 16,384 items when phase
+# clients was added, from 8,192 when phase operators was: the script ran
+# 1,130 s with it, its limit 1,200; and from 4,096 for phase batcher_dp)
+SN_ITEMS, SN_VALUE, SN_THREADS = 1024, 1024, 8
+# phase fs: 4 files of 64 MiB from 4 writers (cut from 16 for phase
+# batcher_dp), 8 threads x 64 files of 4 KiB (cut from 1,024 a thread:
+# 8,192 creates, renames and stats took 243 s on the card's host; from 256
+# when phase operators was added, and from 128 for phase batcher_dp), 2
+# files tiered (cut from 4)
+FS_FILES, FS_FILE, FS_WRITERS = 4, 64 * MIB, 4
+FS_META_THREADS, FS_META_FILES, FS_META_SIZE = 8, 64, 4096
+FS_TIER = 2
+# phase s3: the objectnode role over the same planes; 4 objects of 64 MiB
+# from 4 threads (cut from 16 when phase operators was added, and from 8
+# for phase batcher_dp), one multipart object of 128 MiB in 16 parts of
+# 8 MiB (the AWS CLI's multipart_chunksize; cut from 32 parts for phase
+# batcher_dp), 8 threads x 128 objects of 4 KiB (phase fs's cut), listings
+# and DeleteObjects in pages of 1,000 (S3's default max-keys and its batch
+# cap; the 1,024 small objects keep the listing at 2 pages), 2 objects
+# tiered (cut from 4)
+S3_OBJECTS, S3_OBJECT, S3_WRITERS = 4, 64 * MIB, 4
+S3_MULTIPART, S3_PART = 128 * MIB, 8 * MIB
 S3_SMALL_THREADS, S3_SMALL, S3_SMALL_SIZE = 8, 128, 4096
 S3_PAGE = 1000
-S3_TIER = 4
+S3_TIER = 2
 # phase fs_doors: phase fs's cluster with a flash group manager and two flash
 # groups (az-a, az-b) of 2 flashnodes at the role's default of 256 MiB.
-# Case split: 16 files of 64 MiB from 4 writers, 4 of them tiered, 4 threads
+# Case split: 13 files of 64 MiB from 4 writers, 2 of them tiered (cut from
+# 16 and 4 for phase batcher_dp; the 11 left are the flash sets), 4 threads
 # of 4 KiB creates (at most 256 each) racing an operator split. Case flash:
 # working sets of 3 files (192 MiB, within half the az-a group's 512 MiB)
 # and 8 files (512 MiB, twice that; the hotness gate tracks 4,096 blocks,
 # 512 MiB, so a larger set is never admitted). Case geo: 16,384 records.
-DOORS_FILES, DOORS_FILE, DOORS_WRITERS, DOORS_TIER = 16, 64 * MIB, 4, 4
+DOORS_FILES, DOORS_FILE, DOORS_WRITERS, DOORS_TIER = 13, 64 * MIB, 4, 2
 DOORS_RACERS, DOORS_RACE_FILES, DOORS_RACE_SIZE = 4, 256, 4096
 FLASH_SMALL_FILES, FLASH_BIG_FILES = 3, 8
 GEO_RECORDS = 16384
 # phase clients: the C ABI against the launched codec role (EC12P4 stripes of
 # 4 MiB shards through /dev/shm, B = 4; 8 MiB blobs over the body, B = 4;
 # 1,024 CRC blocks of 128 KiB, the codec service phase's sizes), against the
-# access role (8 objects of 64 MiB) and against the fsgateway (16 files of
-# 64 MiB from 4 threads in 1 MiB calls, phase fs's volume of user data;
-# the first 2 tiered); the FUSE mount copies 2 files of 64 MiB in and out
-# (tiered and FUSE files cut from 4 when phase operators was added: each
-# 64 MiB through the card's runsc FUSE took 9-11 s)
-CLIENT_OBJECTS, CLIENT_OBJECT = 8, 64 * MIB
-CLIENT_FILES, CLIENT_FILE, CLIENT_WRITERS, CLIENT_CALL, CLIENT_TIER = 16, 64 * MIB, 4, MIB, 2
+# access role (4 objects of 64 MiB) and against the fsgateway (4 files of
+# 64 MiB from 4 threads in 1 MiB calls; the first 2 tiered, the other 2
+# copied in and out through the FUSE mount (tiered and FUSE files cut from 4
+# when phase operators was added: each 64 MiB through the card's runsc FUSE
+# took 9-11 s; the FUSE battery renames one and sets xattrs on the other;
+# objects and files cut from 8 and 16 for phase batcher_dp)
+CLIENT_OBJECTS, CLIENT_OBJECT = 4, 64 * MIB
+CLIENT_FILES, CLIENT_FILE, CLIENT_WRITERS, CLIENT_CALL, CLIENT_TIER = 4, 64 * MIB, 4, MIB, 2
 CLIENT_FUSE_FILES = 2
 CLIENT_CRC_BLOCKS, CLIENT_CRC_BLOCK = 1024, 128 << 10
 # phase operators: phase fs's file-system plane and the blob roles of phase
 # roles, driven through the operator's CLI (python -m cubefs_tpu_torch.cli):
-# 4 files of 64 MiB through its fs group, 4 objects of 64 MiB through its
-# blob group (cut from 8), 4 bitflips for the scheduler role's scrub, the
-# dial prober, the blob bench at 16 x 8 MiB from 4 threads, bench_codec's
-# run_ab at 32 submitters (its acceptance shape; 50 stripes each, cut from
-# its default of 200) and run_repair_ab at EC6P6MSR, and tier_ab's legs at
-# their own sizes. The cuts: the phase took 195 s alone at the full depth,
-# and the script 1,130 s at 8 objects and 100 stripes (its limit 1,200)
-OPS_FILES, OPS_FILE = 4, 64 * MIB
-OPS_OBJECTS, OPS_OBJECT = 4, 64 * MIB
+# 3 files of 64 MiB through its fs group (fsck corrupts the 2 left after
+# the mv and rm), 2 objects of 64 MiB through its blob group, 4 bitflips for
+# the scheduler role's scrub, the dial prober, the blob bench at 16 x 8 MiB
+# from 4 threads, bench_codec's run_ab at 32 submitters (its acceptance
+# shape; 25 stripes each, cut from its default of 200) and run_repair_ab at
+# EC6P6MSR, and tier_ab's legs at their own sizes. The cuts: the phase took
+# 195 s alone at the full depth, and the script 1,130 s at 8 objects and 100
+# stripes (its limit 1,200); then files 4 -> 3, objects 4 -> 2 and stripes
+# 50 -> 25 for phase batcher_dp
+OPS_FILES, OPS_FILE = 3, 64 * MIB
+OPS_OBJECTS, OPS_OBJECT = 2, 64 * MIB
 OPS_BITFLIPS = 4
 OPS_BENCH_COUNT, OPS_BENCH_SIZE, OPS_BENCH_CONC = 16, 8 * MIB, 4
-OPS_SUBMITTERS, OPS_ITERS, OPS_REPAIR_STRIPES = 32, 50, 96
+OPS_SUBMITTERS, OPS_ITERS, OPS_REPAIR_STRIPES = 32, 25, 96
 LAUNCH_B = 'cubefs_codec_kernel_launches_total{kernel="crc32_blocks"}'
 # phase fs_bench: the file-system plane's benchmark harness and the sm_90a
 # build check, each a process of its own (name, module, arguments): the
@@ -267,6 +285,17 @@ MDTEST_KEYS = ("dir_create_ops", "dir_stat_ops", "small_file_create_tps", "small
                "file_stat_ops", "seq_write_mbps", "seq_read_mbps", "file_remove_ops")
 S3_OWNER = {"access_key": "AKIDSMOKEOWNER000001", "secret_key": "smoke-owner-secret-key"}
 S3_STRANGER = {"access_key": "AKIDSMOKESTRANGER001", "secret_key": "smoke-stranger-secret"}
+# each phase's deadline in seconds (Watchdog): about 1.5 times the longest
+# of its times in whole runs on the card at these depths (PERF.md, section
+# 6), and never under 30 s; and the whole script's
+PHASE_BUDGETS = {
+    "build": 30, "gf_apply": 30, "crc32_blocks": 30, "gf_bitmajor": 30, "main_path": 30,
+    "codec_families": 30, "batcher": 30, "batcher_dp": 30, "end_to_end": 30, "gf_tuning": 30,
+    "service": 60, "engines": 60, "blob": 30, "roles": 80, "raft": 60, "integrity": 30,
+    "shardnode": 45, "fs": 90, "s3": 125, "fs_doors": 165, "clients": 245, "operators": 155,
+    "fs_bench": 120, "sharded": 55, "kernels": 30,
+}
+SCRIPT_BUDGET = 1100.0
 # the C and D instantiations the kernels' record reports: (case, extract, probe, grid)
 RECORDED_BM = (("tuning_rows_2x12_B4", "bcast", None, "flat"),
                ("tuning_rows_2x12_B4", "bcast", "nodot", "stripe"))
@@ -274,6 +303,157 @@ RECORDED_BM = (("tuning_rows_2x12_B4", "bcast", None, "flat"),
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def descendants(pid: int) -> list[int]:
+    """Every live process below ``pid`` (children first), read from /proc."""
+    children = collections.defaultdict(list)
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue  # gone, or not readable
+        children[ppid].append(int(entry))
+    out, todo = [], [pid]
+    while todo:
+        kids = children.get(todo.pop(), [])
+        out += kids
+        todo += kids
+    return out
+
+
+def running(pid: int) -> bool:
+    """Whether ``pid`` exists and has not exited (a zombie has)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+def dump_role_stacks(pids: list[int], lines: int = 60) -> None:
+    """SIGUSR1 to each process (a role of ``cubefs_tpu_torch.cmd`` then
+    writes every thread's stack to its stderr, its log), then the last
+    ``lines`` lines of each log, to stdout."""
+    logs = {}
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+            if b"cubefs_tpu_torch.cmd" not in argv:
+                continue
+            logs[pid] = os.readlink(f"/proc/{pid}/fd/2")
+            os.kill(pid, signal.SIGUSR1)
+        except OSError:
+            continue  # gone, or no log to read
+    time.sleep(2.0)
+    for pid, path in logs.items():
+        try:
+            with open(path, errors="replace") as f:
+                tail = f.readlines()[-lines:]
+        except OSError:
+            continue
+        print(f"--- role process {pid}, {path}:\n{''.join(tail)}", flush=True)
+
+
+def stop_processes(pids: list[int], grace: float = 5.0) -> None:
+    """SIGTERM each process (and the group of each that leads one, as
+    the tools the script runs in sessions of their own do), then SIGKILL
+    what is left after ``grace`` seconds."""
+    own = os.getpgrp()
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in pids:
+            try:
+                if os.getpgid(pid) == pid != own:
+                    os.killpg(pid, sig)
+                else:
+                    os.kill(pid, sig)
+            except OSError:
+                pass  # already gone
+        end = time.monotonic() + grace
+        while sig == signal.SIGTERM and time.monotonic() < end and any(map(running, pids)):
+            time.sleep(0.1)
+
+
+class Watchdog:
+    """A deadline for each phase and one for the whole script.
+
+    ``arm(name)`` starts phase ``name`` with its budget from ``budgets``
+    (and records the seconds of the phase before it); ``disarm()`` ends
+    the last. A thread waits for the earlier of the phase's deadline and
+    the script's. When one passes it prints ``{"phase": name,
+    "overran_s": ...}`` and every thread's stack, the stacks of the
+    roles it started (``dump_role_stacks``), stops every process the
+    script started (``descendants``) and ends the process with exit
+    code 1, whatever the phase is doing. faulthandler backs it with a
+    deadline of its own a minute after the script's, in case the thread
+    itself cannot run."""
+
+    def __init__(self, budgets: dict[str, float], total: float):
+        import faulthandler
+
+        self.budgets, self.total = budgets, total
+        self.t0 = time.monotonic()
+        self.name: str | None = None
+        self.started = self.t0
+        self.seconds: dict[str, float] = {}
+        self._done = False
+        self._cond = threading.Condition()
+        faulthandler.dump_traceback_later(total + 60.0, exit=True)
+        threading.Thread(target=self._watch, name="phase-watchdog", daemon=True).start()
+
+    def arm(self, name: str) -> None:
+        now = time.monotonic()
+        with self._cond:
+            if self.name is not None:
+                self.seconds[self.name] = now - self.started
+            self.name, self.started = name, now
+            self._cond.notify_all()
+
+    def elapsed(self) -> float:
+        """Seconds since the current phase was armed."""
+        return time.monotonic() - self.started
+
+    def disarm(self) -> None:
+        import faulthandler
+
+        self.arm(None)
+        with self._cond:
+            self._done = True
+            self._cond.notify_all()
+        faulthandler.cancel_dump_traceback_later()
+
+    def _watch(self) -> None:
+        with self._cond:
+            while True:
+                if self._done:
+                    return
+                now = time.monotonic()
+                budget = self.budgets[self.name] if self.name is not None else self.total
+                end = min(self.started + budget, self.t0 + self.total)
+                if now >= end:
+                    break
+                self._cond.wait(end - now)
+            name, over = self.name, now - self.started
+        self._fire(name, over, budget)
+
+    def _fire(self, name: str | None, over: float, budget: float) -> None:
+        import faulthandler
+
+        script_s = time.monotonic() - self.t0
+        emit({"phase": name, "overran_s": over, "budget_s": budget, "script_s": script_s,
+              "limit": "script" if script_s >= self.total else "phase",
+              "seconds": self.seconds})
+        sys.stderr.flush()
+        faulthandler.dump_traceback(file=sys.stdout, all_threads=True)
+        sys.stdout.flush()
+        kids = descendants(os.getpid())
+        dump_role_stacks(kids)
+        stop_processes(kids)
+        os._exit(1)
 
 
 def sharded_summary(run: dict, per_rank: list[dict]) -> dict:
@@ -313,14 +493,38 @@ def rpc_post(addr: str, method: str, args: dict, body: bytes = b"",
         conn.close()
 
 
+_PORTS_GIVEN: set[int] = set()
+
+
 def free_port() -> int:
     """A free TCP port on 127.0.0.1, for a role that needs a static one
-    (a raft member names itself)."""
+    (a raft member names itself). It is drawn below the kernel's range
+    of ephemeral ports (and below 16,000, where gVisor's starts), never
+    twice in a run: a port the kernel hands to a ``listen_port: 0`` role
+    or to an outgoing connection between this choice and the role's
+    bind would fail that bind with ``EADDRINUSE``."""
+    import random
     import socket
 
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        return sk.getsockname()[1]
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 16000
+    high = min(low, 16000)
+    rng = random.Random()
+    for _ in range(1000):
+        port = rng.randrange(high - 6000, high)
+        if port in _PORTS_GIVEN:
+            continue
+        with socket.socket() as sk:
+            try:
+                sk.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        _PORTS_GIVEN.add(port)
+        return port
+    raise RuntimeError(f"no free port in [{high - 6000}, {high})")
 
 
 def scrape(addr: str) -> dict[str, float]:
@@ -369,10 +573,11 @@ def timed_case(acc: str, calls: list, nbytes: int) -> tuple[dict, list]:
 
 def parity_equals_plain(vol: dict, bid: int, n: int, m: int) -> bool:
     """A blob's stripe fetched from the blobnodes' ``get_shard``: its
-    parity rows against ``rs_kernel``'s plain version on the CPU."""
+    parity rows against ``rs_kernel``'s plain version (``gf_apply_bits``,
+    no kernel), run on the card where there is one."""
     import torch
 
-    from cubefs_tpu_torch.ops import rs_kernel
+    from cubefs_tpu_torch.ops import gf256, rs_kernel
 
     rows = []
     for u in vol["units"]:
@@ -382,8 +587,10 @@ def parity_equals_plain(vol: dict, bid: int, n: int, m: int) -> bool:
             return False
         rows.append(np.frombuffer(shard, np.uint8))
     stripe = np.stack(rows)
-    plain = rs_kernel.encode_parity(torch.from_numpy(stripe[None, :n].copy()), m)
-    return bool(np.array_equal(plain[0].numpy(), stripe[n:]))
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    w = torch.from_numpy(rs_kernel.coeff_bits(gf256.parity_matrix(n, m)))
+    plain = rs_kernel.gf_apply_bits(w, torch.from_numpy(stripe[:n].copy()).to(dev))
+    return bool(np.array_equal(plain.cpu().numpy(), stripe[n:]))
 
 
 class Quiet:
@@ -3731,7 +3938,12 @@ def clients_phase(dev, card: str, *, objects: int = CLIENT_OBJECTS, obj_size: in
             return rpc.call(master, "client_view", {"name": state["volume"]})[0]["volume"]
 
         pool = rpc.NodePool()
-        blob = BlobClient(cmgr, pool, AccessConfig(blob_size=blob_size, engine="cuda", device=dev))
+        # through the proxy, as the access role: its volume lease was taken
+        # while every disk was healthy, and a disk the blobnodes quarantine
+        # for latency after case blob_put (30 s at least) leaves 14 of 18
+        # normal, too few for a new EC12P4 volume
+        blob = BlobClient(cmgr, pool, AccessConfig(blob_size=blob_size, engine="cuda", device=dev),
+                          proxy=roles["proxy"][0])
         os.environ["CUBEFS_TIERING"] = "1"
         try:
             fs = FileSystem(view(), pool, blob_client=blob, master_addr=master)
@@ -4546,6 +4758,125 @@ def operators_phase(dev, card: str, *, files: int = OPS_FILES, file_size: int = 
             "checks": checks}
 
 
+def batcher_dp_phase(dev, card: str, *, shard: int = SHARD, b: int = DP_STRIPES) -> dict:
+    """Phase ``batcher_dp``: the batcher's dp split (``codec/batcher.py``)
+    on a step of ``b`` EC12P4 stripes of ``shard``-byte shards: an encode,
+    and the reconstruct apply of shards 1 and 7 from the first 12
+    survivors, each on both legs (device tensors under ``cuda``, host
+    stripes under ``auto``, whose step must be served by the ``cuda``
+    leg) through ``BatchCodec(devices=[dev, dev])``, and through
+    ``devices=None`` too where two or more cards are visible. Every
+    result is held against the plain version and against the unsplit
+    step of a default ``BatchCodec`` (on one card it must not split);
+    each split step must count one ``codec_batch_dp_steps{dp}`` and
+    launch A once a block; a list naming a card that is not there must
+    fail the step's future, on both legs. Launches count from 0.
+    Returns the record with ``checks``."""
+    import torch
+
+    from cubefs_tpu_torch.codec import engine as engines
+    from cubefs_tpu_torch.codec.batcher import BatchCodec
+    from cubefs_tpu_torch.ops import _build, gf256, rs_kernel
+    from cubefs_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    n, m = 12, 4
+    cards = torch.cuda.device_count()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    x = torch.randint(0, 256, (b, n, shard), dtype=torch.uint8, device=dev, generator=gen)
+    enc_rows = gf256.parity_matrix(n, m)
+    present = [i for i in range(n + m) if i not in (1, 7)][:n]
+    rec_rows = rs_kernel.reconstruct_rows(n, n + m, present, [1, 7])
+
+    def plain(coeff, t):
+        return rs_kernel.gf_apply_bits(torch.from_numpy(rs_kernel.coeff_bits(coeff)), t)
+
+    parity = plain(enc_rows, x)
+    surv = torch.cat([x, parity], dim=1)[:, present].contiguous()
+    lost = x[:, [1, 7]].cpu().numpy()
+    work = {"encode": (None, x, parity.cpu().numpy()),
+            "apply": (rec_rows, surv, plain(rec_rows, surv).cpu().numpy())}
+    host_in = {op: t.cpu().numpy() for op, (_, t, _) in work.items()}
+    del parity
+    _build.reset_launches()
+
+    def step(bc, leg: str, op: str):
+        coeff, t, _ = work[op]
+        data = t if leg == "cuda" else host_in[op]
+        if op == "encode":
+            return bc.submit_encode_async(dev, data, m, engine=leg)
+        return bc.submit_apply_async(dev, coeff, data, engine=leg)
+
+    def dp_total() -> float:
+        return sum(v for _, v in metrics.codec_batch_dp_steps.samples())
+
+    cases, checks = [], {}
+    plain_bc = BatchCodec(enabled=True)  # the default: every visible card
+    if cards >= 2:
+        plain_bc.dp_enabled = False  # would split: take the unsplit step
+    runs = {"named_twice": [dev, dev]}
+    if cards >= 2:
+        runs["visible_cards"] = None
+    for run, devices in runs.items():
+        bc = BatchCodec(enabled=True, devices=devices)
+        dp = min(len(bc.devices if devices is not None else range(cards)), b)
+        for leg in ("cuda", "auto"):
+            for op in ("encode", "apply"):
+                want = work[op][2]
+                before = (dp_total(), metrics.codec_batch_dp_steps.value(dp=dp),
+                          _build.LAUNCHES["gf_apply"],
+                          metrics.codec_batch_steps.value(op=op, engine="cuda"))
+                t = time.perf_counter()
+                got = step(bc, leg, op).result()
+                got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
+                ms = (time.perf_counter() - t) * 1e3
+                split = (dp_total() - before[0], metrics.codec_batch_dp_steps.value(dp=dp)
+                         - before[1], _build.LAUNCHES["gf_apply"] - before[2],
+                         metrics.codec_batch_steps.value(op=op, engine="cuda") - before[3])
+                served = engines.last_dispatch["served"] if leg == "auto" else "cuda"
+                before_plain = (dp_total(), _build.LAUNCHES["gf_apply"])
+                ref = step(plain_bc, leg, op).result()
+                ref = ref.cpu().numpy() if isinstance(ref, torch.Tensor) else ref
+                unsplit = (dp_total() - before_plain[0], _build.LAUNCHES["gf_apply"]
+                           - before_plain[1])
+                case = f"{run}.{leg}.{op}"
+                cases.append({"case": case, "dp": dp, "B": b, "S": shard, "ms": ms,
+                              "served": served, "dp_steps": split[1], "launches": split[2],
+                              "unsplit_launches": unsplit[1]})
+                checks.update({
+                    f"{case}.equals_plain": bool(np.array_equal(got, want)),
+                    f"{case}.equals_unsplit_step": bool(np.array_equal(got, ref)),
+                    f"{case}.served_cuda": served == "cuda" and split[3] == 1,
+                    f"{case}.one_dp_step": split[0] == split[1] == 1,
+                    f"{case}.a_launched_once_a_block": split[2] == dp,
+                    f"{case}.default_did_not_split": unsplit == (0, 1),
+                })
+                if op == "apply":
+                    checks[f"{case}.rebuilt_lost_shards"] = bool(np.array_equal(got, lost))
+                del got, ref
+    missing = torch.device("cuda", cards)
+    bad = BatchCodec(enabled=True, devices=[dev, missing])
+    refused = {}
+    for leg in ("cuda", "auto"):
+        before = (dp_total(), _build.LAUNCHES["gf_apply"])
+        try:
+            step(bad, leg, "encode").result()
+            refused[leg] = None
+        except RuntimeError as e:
+            refused[leg] = str(e)[:200]
+        checks[f"missing_card.{leg}.future_raised"] = (
+            refused[leg] is not None and (dp_total(), _build.LAUNCHES["gf_apply"]) == before)
+    launches = dict(_build.LAUNCHES)
+    checks["launched_only_gf_apply"] = launches["gf_apply"] > 0 and all(
+        v == 0 for k, v in launches.items() if k != "gf_apply")
+    del x, surv, work, host_in
+    torch.cuda.synchronize()
+    return {"phase": "batcher_dp", "card": card, "runs": list(runs), "cards": cards,
+            "missing_card": str(missing), "refused": refused, "cases": cases,
+            "launches": launches, "seconds": time.perf_counter() - t_phase, "checks": checks}
+
+
 def fs_bench_checks(name: str, rc, out) -> dict[str, bool]:
     """One tool run's checks, from its own fields. The mdtest/fio run, the
     wire A/B and the build check must exit 0. The split and geo A/Bs exit
@@ -4648,6 +4979,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
+    watch = Watchdog(PHASE_BUDGETS, SCRIPT_BUDGET)
+    watch.arm("build")  # the imports below included
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from cubefs_tpu_torch.codec import codemode as cm
@@ -4684,8 +5017,21 @@ def main() -> int:
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
 
     # -- 1. build --------------------------------------------------------
+    # The three kernel sources (nvcc, in parallel) and, beside them, the
+    # host libraries later phases load (g++, one thread each), all at once.
+    from cubefs_tpu_torch.blob import chunkstore
+    from cubefs_tpu_torch.ops import gfcpu
+    from cubefs_tpu_torch.runtime import fsnative, kvstore, nativeclient
+
     t0 = time.perf_counter()
-    build_s = _build.build()
+    host_builds = {"gfcpu": gfcpu.build, **{
+        mod.__name__.rsplit(".", 1)[1]: functools.partial(
+            _build.build_host, mod.lib_path(), mod.SOURCES, mod.__name__)
+        for mod in (chunkstore, fsnative, kvstore, nativeclient)}}
+    with ThreadPoolExecutor(len(host_builds)) as pool:
+        host_futs = {name: pool.submit(fn) for name, fn in host_builds.items()}
+        build_s = _build.build()
+        host_libs = {name: os.path.basename(f.result()) for name, f in host_futs.items()}
     ptxas = {}
     for name in build_s:  # one library per source
         log = _build.log_path(name)
@@ -4696,10 +5042,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "per_kernel_s": {k: round(v, 3) for k, v in build_s.items()},
+          "per_kernel_s": {k: round(v, 3) for k, v in build_s.items()}, "host_libs": host_libs,
           "ptxas": ptxas, "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0)})
 
+    watch.arm("gf_apply")
     # -- 2. gf_apply vs plain ------------------------------------------------
     # ms is the whole wrapper call between CUDA events; device_ms the
     # kernel's own time from the profiler's CUDA trace (host excluded),
@@ -4789,9 +5136,10 @@ def main() -> int:
         gf_results.append(res)
         if not equal:
             raise AssertionError(f"gf_apply disagrees with its plain version: {res}")
-    emit({"phase": "gf_apply", "cases": gf_results})
+    emit({"phase": "gf_apply", "seconds": watch.elapsed(), "cases": gf_results})
     del surviving, gf_cases, in_place, unaligned, lrc_gf, msr_gf
 
+    watch.arm("crc32_blocks")
     # -- 3. crc32_blocks vs plain and zlib -------------------------------
     frame_rows = rand(512, 4, 64 << 10)  # blob frames: payloads 4 bytes into their blocks
     crc_cases = [  # (label, blocks)
@@ -4832,10 +5180,11 @@ def main() -> int:
         crc_results.append(res)
         if not (equal and zlib_equal):
             raise AssertionError(f"crc32_blocks disagrees: {res}")
-    emit({"phase": "crc32_blocks", "cases": crc_results})
+    emit({"phase": "crc32_blocks", "seconds": watch.elapsed(), "cases": crc_results})
     del crc_cases, frame_rows
     torch.cuda.empty_cache()
 
+    watch.arm("gf_bitmajor")
     # -- 4. gf_bitmajor / gf_bitmajor_probe (kernels C, D) vs plain ------
     # Every instantiation: extraction x grid for the apply and nodot, grid
     # for noext (it extracts nothing). The bound is the function's, as for
@@ -4896,12 +5245,13 @@ def main() -> int:
                 if not equal:
                     bm_bad.append(res)
             del want
-    emit({"phase": "gf_bitmajor", "cases": bm_results})
+    emit({"phase": "gf_bitmajor", "seconds": watch.elapsed(), "cases": bm_results})
     if bm_bad:
         raise AssertionError(f"bit-matrix kernels disagree with their plain versions: {bm_bad}")
     del bm_x, bm_cases
     torch.cuda.empty_cache()
 
+    watch.arm("main_path")
     # -- 5. the main path, through the entry points --------------------------
     _build.reset_launches()
     t_main = time.perf_counter()
@@ -4984,6 +5334,7 @@ def main() -> int:
     def only_gf_apply(counts: dict[str, int]) -> bool:
         return counts["gf_apply"] > 0 and all(v == 0 for k, v in counts.items() if k != "gf_apply")
 
+    watch.arm("codec_families")
     # -- 6. the LRC and MSR codec families, through the entry points --------
     # Every result is held against the plain version on the same inputs, or
     # against stripes that were; any mismatch fails the run.
@@ -5115,6 +5466,7 @@ def main() -> int:
     if failed:
         raise AssertionError(f"codec family checks failed: {failed}")
 
+    watch.arm("batcher")
     # -- 7. the codec batcher: concurrent small PUTs and an MSR mix --------
     # 32 threads each admit 8 EC12P4 encodes of 1 MiB payloads before
     # collecting them, as the blob access layer's concurrent PUTs do; every
@@ -5208,7 +5560,7 @@ def main() -> int:
     bat["uncontended_plain"] = (bool(torch.equal(st[:n], data)) and bool(
         torch.equal(st[n:], plain(put_rows, data))))
     bat["launches_all_runs"] = dict(_build.LAUNCHES)
-    emit({"phase": "batcher", **bat})
+    emit({"phase": "batcher", **bat, "phase_seconds": watch.elapsed()})
     mx = bat["mixed_sizes"]
     bat_checks = {
         **{f"{run}.{c}": v for run in ("puts", "msr_mix") for c, v in bat[run].items()},
@@ -5228,6 +5580,21 @@ def main() -> int:
     del mixed_stripes
     torch.cuda.empty_cache()
 
+    watch.arm("batcher_dp")
+    # -- 7b. the batcher's dp split over the listed cards ------------------
+    # The card named twice (and every visible card where there are two or
+    # more): both legs, an encode and a reconstruct apply of 8 EC12P4
+    # stripes at 4 MiB shards, each held against the plain version and
+    # the unsplit step; the dp counter, A once a block, and a missing card
+    # refused. Counts from 0: A only.
+    dp_phase = batcher_dp_phase(dev, card)
+    emit(dp_phase)
+    failed = [k for k, v in dp_phase["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"batcher_dp checks failed: {failed}")
+    torch.cuda.empty_cache()
+
+    watch.arm("end_to_end")
     # -- 8. the entry points end to end, timed ------------------------------
     # Each ms covers the whole call (host work, kernels, views, compares).
     e2e = []
@@ -5333,8 +5700,10 @@ def main() -> int:
         step_span()
     span_us = (time.perf_counter() - t0) * 1e3
     tracelib.reset_collector()
-    emit({"phase": "end_to_end", "cases": e2e, "codec_step_span_us": span_us})
+    emit({"phase": "end_to_end", "seconds": watch.elapsed(), "cases": e2e,
+          "codec_step_span_us": span_us})
 
+    watch.arm("gf_tuning")
     # -- 9. the GF tuning path: both rounds of tuning/gf_tuning.py ----------
     _build.reset_launches()
     tuning = {}
@@ -5342,7 +5711,8 @@ def main() -> int:
         records = gf_tuning.sweep(round_, dev)
         best = gf_tuning.best(records)
         tuning[round_] = records
-        emit({"phase": "gf_tuning", "round": round_, "records": records, "best": best})
+        emit({"phase": "gf_tuning", "round": round_, "seconds": watch.elapsed(),
+              "records": records, "best": best})
         print("BEST:", json.dumps(best), flush=True)
         errors = [rec for rec in records if "error" in rec]
         if errors or best is None:
@@ -5352,6 +5722,7 @@ def main() -> int:
         raise AssertionError(f"the tuning path did not launch both bit-matrix kernels: "
                              f"{tuning_launches}")
 
+    watch.arm("service")
     # -- 10. the codec service: the codec role, driven over its wire --------
     # The server runs as its users start it, a process of its own on the
     # card. This process drives it with http.client as the native client
@@ -5591,6 +5962,7 @@ def main() -> int:
     if failed:
         raise AssertionError(f"service checks failed: {failed}")
 
+    watch.arm("engines")
     # -- 11. the codec engine layer: host legs, XOR programs, auto ---------
     # Counts from 0 (this process's): A only. The second codec role's
     # launches come from its /metrics.
@@ -5601,6 +5973,7 @@ def main() -> int:
     if failed:
         raise AssertionError(f"engines checks failed: {failed}")
 
+    watch.arm("blob")
     # -- 12. the blob plane: PUT, GET, degraded GET, disk repair -------------
     # After phase engines, so that auto reads the table measured on this
     # card. Counts from 0: A only (B is not on the path: the blob plane
@@ -5614,6 +5987,7 @@ def main() -> int:
     if failed:
         raise AssertionError(f"blob checks failed: {failed}")
 
+    watch.arm("roles")
     # -- 13. the blob roles over HTTP: every role a process of its own --------
     # The access process builds nothing (phase build did) and runs engine
     # cuda; its A launches come from its /metrics. Nothing in this process
@@ -5625,6 +5999,7 @@ def main() -> int:
     if failed:
         raise AssertionError(f"roles checks failed: {failed}")
 
+    watch.arm("raft")
     # -- 14. the replicated blob plane: raft and its failures ----------------
     # The same plane with its control plane replicated: a clustermgr raft
     # group of 3 and the repair/delete bus on 3 scheduler members. A runs
@@ -5637,6 +6012,7 @@ def main() -> int:
     if failed:
         raise AssertionError(f"raft checks failed: {failed}")
 
+    watch.arm("integrity")
     # -- 15. the integrity sweep: the scheduler's scrub, A its parity verifier
     # In process, on engine cuda. Counts from 0: A only.
     torch.cuda.empty_cache()
@@ -5646,6 +6022,7 @@ def main() -> int:
     if failed:
         raise AssertionError(f"integrity checks failed: {failed}")
 
+    watch.arm("shardnode")
     # -- 16. the metadata shards: the shardnode on raft over the KV store ----
     # Host work only: no kernel runs here.
     shards = shardnode_phase(dev, card)
@@ -5654,6 +6031,7 @@ def main() -> int:
     if failed:
         raise AssertionError(f"shardnode checks failed: {failed}")
 
+    watch.arm("fs")
     # -- 17. the file-system plane: master, metanodes, datanodes, the client
     # The roles are processes; the client runs here, and so does its cold
     # tier's blob codec: A encodes each tier PUT and rebuilds each degraded
@@ -5665,6 +6043,7 @@ def main() -> int:
     if failed:
         raise AssertionError(f"fs checks failed: {failed}")
 
+    watch.arm("s3")
     # -- 18. the S3 gateway: the objectnode role over the same planes --------
     # The roles are processes; the cold tier's client and the gateway that
     # serves the cold GETs run here, and so does the blob codec: A encodes
@@ -5677,6 +6056,7 @@ def main() -> int:
     if failed:
         raise AssertionError(f"s3 checks failed: {failed}")
 
+    watch.arm("fs_doors")
     # -- 19. the file-system plane's doors: split, flash tier, geo ----------
     # The roles are processes; the client, its cold tier's blob codec and
     # the two geo regions run here: A encodes the tier PUTs and rebuilds
@@ -5689,6 +6069,7 @@ def main() -> int:
     if failed:
         raise AssertionError(f"fs_doors checks failed: {failed}")
 
+    watch.arm("clients")
     # -- 20. the clients and mounts: the C ABI, the fsgateway, FUSE, console
     # The roles are processes: A and B run in the codec role under the C
     # ABI's codec calls, A in the access role under cfs_blob_*; the tiered
@@ -5702,6 +6083,7 @@ def main() -> int:
     if failed:
         raise AssertionError(f"clients checks failed: {failed}")
 
+    watch.arm("operators")
     # -- 21. the operator plane and the blob and codec tools ------------------
     # The roles are processes, driven by the CLI's processes: A runs in the
     # access role on the PUT stacks and the degraded GETs, in the scheduler
@@ -5716,6 +6098,7 @@ def main() -> int:
     if failed:
         raise AssertionError(f"operators checks failed: {failed}")
 
+    watch.arm("fs_bench")
     # -- 22. the file-system benchmark harness and the sm_90a build check ----
     # Host tools, each a process of its own (the harness forks its clients
     # and servers); nothing in them launches a kernel. The build check
@@ -5726,6 +6109,7 @@ def main() -> int:
     if failed:
         raise AssertionError(f"fs_bench checks failed: {failed}")
 
+    watch.arm("sharded")
     # -- 23. the sharded step: 8 ranks over torch.distributed ----------------
     # Built above, in this process: the ranks find the libraries and run
     # no nvcc. Every rank runs A and B on its own block; the collectives
@@ -5740,7 +6124,8 @@ def main() -> int:
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
     t_sh = time.perf_counter()
     ranks = launch.launch(dryrun.multichip, world, backend=backend, device=None,
-                          args=(SHARDED_RUNS, KERNEL_REPS), deadline=480.0, timeout=300.0)
+                          args=(SHARDED_RUNS, KERNEL_REPS),
+                          deadline=PHASE_BUDGETS["sharded"] - 10.0, timeout=300.0)
     sharded = [sharded_summary(run, [r.result[i] for r in ranks])
                for i, run in enumerate(SHARDED_RUNS)]
     emit({"phase": "sharded", "backend": backend, "world": world,
@@ -5749,6 +6134,7 @@ def main() -> int:
     if sh_bad:
         raise AssertionError(f"sharded step checks failed: {sh_bad}")
 
+    watch.arm("kernels")
     # -- 24. the kernels' record --------------------------------------------
     gf_main, crc_main = gf_results[0], crc_results[0]
     bm_main, probe_main = (next(x for x in bm_results
@@ -5758,6 +6144,7 @@ def main() -> int:
         {"name": "gf_apply", "route": "cuda", "source": "cubefs_tpu_torch/csrc/gf_apply.cu",
          "replaces": "cubefs_tpu/ops/pallas_gf.py:46", "shape": gf_main["case"],
          "launches": launches["gf_apply"], "service_launches": svc_launches["gf_apply"],
+         "batcher_dp_launches": dp_phase["launches"]["gf_apply"],
          "engines_launches": eng_phase["launches"]["gf_apply"],
          "blob_launches": blob["launches"]["gf_apply"],
          "roles_launches": roles["launches"]["gf_apply"],
@@ -5796,6 +6183,8 @@ def main() -> int:
           for rec, replaces in ((bm_main, "benchmarks/pallas_tuning.py:41"),
                                 (probe_main, "benchmarks/pallas_tuning2.py:56"))),
     ]})
+    watch.disarm()
+    emit({"phase_seconds": watch.seconds, "script_s": time.monotonic() - watch.t0})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -72,12 +72,14 @@ SIGTERM or SIGINT it stops what it started beside its service
 master's quota sweeper, ``stop``, then ``fsm_stop``, which stops a
 clustermgr's or master's raft node), the replicated queues a scheduler
 hosts, and then the server; an error while closing is printed and the
-process exits 1.
+process exits 1. On SIGUSR1 it writes every thread's stack to stderr and
+serves on.
 """
 
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import json
 import signal
 import sys
@@ -434,6 +436,7 @@ def main(argv=None) -> int:
     with open(args.config) as f:
         cfg = json.load(f)
     stop = threading.Event()
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
     signal.signal(signal.SIGTERM, lambda *a: stop.set())
     signal.signal(signal.SIGINT, lambda *a: stop.set())
     srv, svc = run_role(cfg)

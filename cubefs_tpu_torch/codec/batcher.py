@@ -47,14 +47,34 @@ where a one-submission step has them. Results come back as numpy, or
 in the submission's ``out=`` rows. The step counter
 is labelled with the leg that served.
 
-The reference also splits drained steps over a device mesh and retries
-a failed engine through a fallback chain; neither is carried over. A
-failure goes to the step's futures.
+The dp split. A step on the ``cuda`` leg (device tensors of ``cuda``,
+or host stripes that ``engine.dispatch`` would serve on ``cuda``) is
+cut along its batch axis into ``dp = min(len(devices), B)`` blocks of
+whole stripes (``array_split``: no padding), one a device, as the
+reference's ``_maybe_dp`` shards it over a ``(dp, 1, 1)`` mesh. No
+block needs another's bytes, so nothing is exchanged: the blocks run in
+this process, with no ranks and no collective. A device tensor's block
+is copied to its card after the step has joined its callers' streams,
+kernel A runs there, and the result is copied back into the step's
+output rows on the home card (a block on the home card is written in
+place). Host stripes go block by block through ``hostio.staged`` on
+their card, into the step's ``out=`` rows or one result array. The
+split engages only when ``dp_enabled``, the step holds at least
+``dp_min_bytes`` bytes, B >= 2 and at least two devices are listed
+(``devices=None``: every visible card, so one card never splits). A
+device may be listed more than once: the blocks then run one after
+another on it, which is how one card and the CPU drive the split. Once
+engaged, any error (a card that is not there, a launch, a copy) goes to
+the step's futures like any failed step: there is no retry unsplit
+(the reference returns to the unsplit engine). The reference's retry
+of a failed engine through a fallback chain is not carried over either.
 
 Counters (``utils/metrics.py``, where the reference increments them):
-stripes admitted per swap, device steps per engine call, stripes per
-step, each submission's wait for its step, submitters that met
-backpressure, and submissions rejected alone. Tracing (``utils/trace.py``):
+stripes admitted per swap, device steps per engine call (a split step
+counts once, under the leg that served), split steps by ``dp``
+(``codec_batch_dp_steps``), stripes per step, each submission's wait
+for its step, submitters that met backpressure, and submissions
+rejected alone. Tracing (``utils/trace.py``):
 each submission captures its caller's span; each step opens one
 ``stage:codec_step`` span that follows from them (tags ``stage``, ``op``,
 ``stripes``) and observes the ``codec_step`` stage.
@@ -65,6 +85,8 @@ Knobs (environment, read at construction):
   CUBEFS_CODEC_BATCH_WAIT_MS  drainer linger before its first swap (0)
   CUBEFS_CODEC_BATCH_PENDING  pending stripes before submitters block (4096)
   CUBEFS_CODEC_STEP_BYTES     most input bytes per device step (64 MiB)
+  CUBEFS_CODEC_DP=0           no dp split
+  CUBEFS_CODEC_DP_MIN_BYTES   least input bytes of a split step (1 MiB)
 """
 
 from __future__ import annotations
@@ -197,11 +219,12 @@ class BatchCodec:
     """The submit surface. One instance per process is the norm
     (``DEFAULT`` below); tests build private ones. ``steps`` and
     ``submissions`` count the device steps and the submissions that went
-    through the queues."""
+    through the queues. ``devices`` lists the devices a step on the
+    ``cuda`` leg is split over (None: every visible card)."""
 
     def __init__(self, enabled: bool | None = None, max_batch: int | None = None,
                  max_wait_ms: float | None = None, max_pending: int | None = None,
-                 max_step_bytes: int | None = None):
+                 max_step_bytes: int | None = None, devices=None):
         self.enabled = (os.environ.get("CUBEFS_CODEC_BATCH", "1") != "0"
                         if enabled is None else enabled)
         self.max_batch = (max_batch if max_batch is not None
@@ -212,6 +235,9 @@ class BatchCodec:
                             else _env_int("CUBEFS_CODEC_BATCH_PENDING", 4096))
         self.max_step_bytes = (max_step_bytes if max_step_bytes is not None
                                else _env_int("CUBEFS_CODEC_STEP_BYTES", 64 << 20))
+        self.dp_enabled = os.environ.get("CUBEFS_CODEC_DP", "1") != "0"
+        self.dp_min_bytes = _env_int("CUBEFS_CODEC_DP_MIN_BYTES", 1 << 20)
+        self.devices = None if devices is None else [torch.device(d) for d in devices]
         self.steps = 0
         self.submissions = 0
         self._lock = threading.Lock()
@@ -524,8 +550,12 @@ class BatchCodec:
         routed on host stripes (``auto`` by the step's bytes). Counted
         under the leg that served."""
         op, engine = key[0], key[5]
+        method = "encode_parity" if op == "encode" else "matrix_apply"
         if engine == "cuda":
-            if op == "encode":
+            devs = self._dp_devices(arr)
+            if devs:
+                y = self._split(key, method, coeff, arr, out, devs, host=False)
+            elif op == "encode":
                 y = eng.encode_parity(arr, key[3], out=out)
             else:
                 y = eng.matrix_apply(coeff, arr, out=out)
@@ -534,10 +564,59 @@ class BatchCodec:
             dev = None if eng is None else eng.device
             name = engines.policy_leg(int(arr.nbytes), dev) if engine == "auto" else engine
             args = (arr, key[3]) if op == "encode" else (coeff, arr)
-            y, served = engines.dispatch(name, "encode_parity" if op == "encode"
-                                         else "matrix_apply", dev, *args, out=out)
+            devs = self._dp_devices(arr)
+            if devs and engines.route(name) == "cuda":
+                y, served = self._split(key, method, coeff, arr, out, devs, host=True), "cuda"
+                engines.last_dispatch.update(method=method, requested=name, served=served)
+            else:
+                y, served = engines.dispatch(name, method, dev, *args, out=out)
         metrics.codec_batch_steps.inc(op=op, engine=served)
         return y
+
+    def _dp_devices(self, arr) -> list[torch.device] | None:
+        """The devices a step of ``arr`` on the ``cuda`` leg is split
+        over, one block each, or None where the split does not apply."""
+        b = int(arr.shape[0])
+        if not self.dp_enabled or int(arr.nbytes) < self.dp_min_bytes or b < 2:
+            return None
+        devs = self.devices
+        if devs is None:
+            devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        return devs[:b] if len(devs) >= 2 else None
+
+    @staticmethod
+    def _split(key: tuple, method: str, coeff: np.ndarray | None, arr, out,
+               devs: list[torch.device], host: bool):
+        """One step cut into ``len(devs)`` blocks of whole stripes, block
+        i run on ``devs[i]``; the result in ``out`` (the step's rows) or
+        a new array (host) or tensor on ``arr``'s device."""
+        op = key[0]
+        n_out = key[3] if op == "encode" else coeff.shape[0]
+        for d in devs:  # fail before any block runs
+            d = devlib.resolve(d)
+            if d.type == "cuda" and d.index >= torch.cuda.device_count():
+                raise RuntimeError(f"{op}: the dp split names {d}, which is not there "
+                                   f"({torch.cuda.device_count()} cards visible)")
+        if out is None:
+            shape = (arr.shape[0], n_out, arr.shape[2])
+            out = (np.empty(shape, dtype=np.uint8) if host
+                   else torch.empty(shape, dtype=torch.uint8, device=arr.device))
+
+        def args(x):
+            return (x, n_out) if op == "encode" else (coeff, x)
+
+        for d, rows in zip(devs, np.array_split(np.arange(arr.shape[0]), len(devs))):
+            blk = slice(int(rows[0]), int(rows[-1]) + 1)
+            if host:
+                engines.host_call("cuda", method, d, *args(arr[blk]), out=out[blk])
+                continue
+            eng = CudaEngine(d)
+            here = out[blk] if eng.device == arr.device else None
+            y = getattr(eng, method)(*args(arr[blk].to(eng.device)), out=here)
+            if here is None:
+                out[blk].copy_(y)
+        metrics.codec_batch_dp_steps.inc(dp=len(devs))
+        return out
 
 
 def _copy_into(dst, src):

@@ -200,6 +200,9 @@ codec_batch_backpressure = DEFAULT.counter(
 codec_batch_errors = DEFAULT.counter(
     "cubefs_codec_batch_errors_total",
     "per-submission errors fanned back by the drainer", ("op", "kind"))
+codec_batch_dp_steps = DEFAULT.counter(
+    "cubefs_codec_batch_dp_steps_total",
+    "device steps split dp-wise over the batcher's devices", ("dp",))
 
 # the shared rows cache (ops/progcache.py)
 codec_program_cache = DEFAULT.counter(

@@ -1,4 +1,4 @@
-"""Four reference switches the port now reads, each flipped and held
+"""Six reference switches the port now reads, each flipped and held
 against the reference on the CPU:
 
 - ``CUBEFS_TRACE`` (the tracing layer's kill door) and
@@ -12,7 +12,11 @@ against the reference on the CPU:
 - ``CUBEFS_CODEC_MSR`` (MSR-coded volumes' repair path): the same disk
   of twin EC4P4MSR clusters repaired under each setting gives the same
   shards in both packages, through the sub-shard path at ``1`` and the
-  conventional rows at ``0``.
+  conventional rows at ``0``;
+- ``CUBEFS_CODEC_DP`` and ``CUBEFS_CODEC_DP_MIN_BYTES`` (the batcher's
+  dp split, read when a ``BatchCodec`` is built): the same values in
+  both, and a step splits in both packages or in neither, to the same
+  bytes.
 
 The file-system plane's switches of the slice are flipped in
 ``tests/test_torch_split.py`` (``CUBEFS_META_SPLIT``),
@@ -169,3 +173,39 @@ def test_switch_codec_msr_flipped(ref, ref_routing, tmp_path, rng, monkeypatch, 
     assert reads[True] == reads[False]
     assert (reads[True][0] > 0) == (value == "1") and reads[True][1] == 0
     assert got.access.get(b) == want.access.get(a) == data
+
+
+@pytest.mark.parametrize("dp,min_bytes", [(None, None), ("1", "0"), ("0", "0"), ("1", "65536"),
+                                          ("1", "262144"), ("1", "many")])
+def test_switch_codec_dp_flipped(monkeypatch, dp, min_bytes):
+    """``CUBEFS_CODEC_DP`` and ``CUBEFS_CODEC_DP_MIN_BYTES``, read when a
+    batcher is built: both packages read the same values (an unreadable
+    size falls back to 1 MiB), and a 192 KiB step of 8 stripes splits
+    in both or in neither (the reference over its 8-device mesh, the
+    port over 8 CPU devices), with the same bytes."""
+    import numpy as np
+    import torch
+
+    from cubefs_tpu.codec import batcher as ref_batcher
+    from cubefs_tpu.utils import metrics as ref_metrics
+    from cubefs_tpu_torch.codec import batcher as port_batcher
+
+    for var, value in (("CUBEFS_CODEC_DP", dp), ("CUBEFS_CODEC_DP_MIN_BYTES", min_bytes)):
+        if value is None:
+            monkeypatch.delenv(var, raising=False)
+        else:
+            monkeypatch.setenv(var, value)
+    rb = ref_batcher.BatchCodec(enabled=True)
+    bc = port_batcher.BatchCodec(enabled=True, devices=["cpu"] * 8)
+    assert (bc.dp_enabled, bc.dp_min_bytes) == (rb.dp_enabled, rb.dp_min_bytes)
+    x = np.random.default_rng(6).integers(0, 256, (8, 6, 4096), dtype=np.uint8)
+    counts = []
+    for m in (ref_metrics, metrics):
+        counts.append(-sum(v for _, v in m.codec_batch_dp_steps.samples()))
+    want = rb.submit_encode("tpu", x, 3)
+    got = bc.submit_encode("cpu", torch.from_numpy(x), 3).numpy()
+    for i, m in enumerate((ref_metrics, metrics)):
+        counts[i] += sum(v for _, v in m.codec_batch_dp_steps.samples())
+    assert np.array_equal(got, want)
+    splits = dp != "0" and min_bytes in ("0", "65536")
+    assert counts == [int(splits)] * 2
