@@ -141,6 +141,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import glob
 import http.client
 import itertools
 import json
@@ -336,8 +337,9 @@ def running(pid: int) -> bool:
 
 def dump_role_stacks(pids: list[int], lines: int = 60) -> None:
     """SIGUSR1 to each process (a role of ``cubefs_tpu_torch.cmd`` then
-    writes every thread's stack to its stderr, its log), then the last
-    ``lines`` lines of each log, to stdout."""
+    writes every thread's stack to its stderr, its log), then, to stdout,
+    the last ``lines`` lines of each log before the signal and all it
+    wrote after it: the stacks."""
     logs = {}
     for pid in pids:
         try:
@@ -345,18 +347,21 @@ def dump_role_stacks(pids: list[int], lines: int = 60) -> None:
                 argv = f.read().split(b"\0")
             if b"cubefs_tpu_torch.cmd" not in argv:
                 continue
-            logs[pid] = os.readlink(f"/proc/{pid}/fd/2")
+            path = os.readlink(f"/proc/{pid}/fd/2")
+            logs[pid] = (path, os.path.getsize(path))
             os.kill(pid, signal.SIGUSR1)
         except OSError:
             continue  # gone, or no log to read
     time.sleep(2.0)
-    for pid, path in logs.items():
+    for pid, (path, size) in logs.items():
         try:
-            with open(path, errors="replace") as f:
-                tail = f.readlines()[-lines:]
+            with open(path, "rb") as f:
+                raw = f.read()
         except OSError:
             continue
-        print(f"--- role process {pid}, {path}:\n{''.join(tail)}", flush=True)
+        before = raw[:size].decode(errors="replace").splitlines(keepends=True)[-lines:]
+        stacks = raw[size:].decode(errors="replace")
+        print(f"--- role process {pid}, {path}:\n{''.join(before)}{stacks}", flush=True)
 
 
 def stop_processes(pids: list[int], grace: float = 5.0) -> None:
@@ -454,6 +459,119 @@ class Watchdog:
         dump_role_stacks(kids)
         stop_processes(kids)
         os._exit(1)
+
+
+class StallProbe:
+    """``with StallProbe(label, seconds):`` around a call that takes a
+    second or so: if it has not returned after ``seconds``, prints
+    ``{"stall": label, "after_s": seconds}``, every thread's stack here
+    and the stacks of the roles below this process, once, and lets the
+    call go on. It ends nothing: the phase's deadline still does."""
+
+    def __init__(self, label: str, seconds: float):
+        self.label, self.seconds = label, seconds
+        self._timer = threading.Timer(seconds, self._dump)
+        self._timer.daemon = True
+
+    def _dump(self) -> None:
+        import faulthandler
+
+        emit({"stall": self.label, "after_s": self.seconds})
+        faulthandler.dump_traceback(file=sys.stdout, all_threads=True)
+        sys.stdout.flush()
+        dump_role_stacks(descendants(os.getpid()))
+
+    def __enter__(self) -> StallProbe:
+        self._timer.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._timer.cancel()
+
+
+# the phases --phases may name: each starts what it needs itself, so it
+# runs after phase build alone
+REPEATABLE = ("batcher_dp", "engines", "blob", "roles", "raft", "integrity", "shardnode", "fs",
+              "s3", "fs_doors", "clients", "operators", "fs_bench")
+
+
+def parse_args(argv: list[str]):
+    """The script's options. With none it runs every phase once."""
+    import argparse
+
+    p = argparse.ArgumentParser(prog="chip_smoke.py", description=(
+        "Drive the port on one card and hold its kernels against their plain versions. "
+        "With --phases, run only those phases (after phase build), --repeat times."))
+    p.add_argument("--phases", type=lambda s: s.split(","), default=None,
+                   help=f"comma-separated, of: {','.join(REPEATABLE)}")
+    p.add_argument("--repeat", type=int, default=1, help="runs of --phases (default 1)")
+    args = p.parse_args(argv)
+    if args.phases is not None:
+        bad = [x for x in args.phases if x not in REPEATABLE]
+        if bad or len(set(args.phases)) != len(args.phases):
+            p.error(f"--phases takes distinct names of {','.join(REPEATABLE)}; got {args.phases}")
+    if args.repeat < 1:
+        p.error("--repeat takes a count of 1 or more")
+    if args.repeat > 1 and args.phases is None:
+        p.error("--repeat needs --phases")
+    return args
+
+
+def repeat_budget(phases: list[str], repeat: int) -> float:
+    """The script's deadline for ``--phases``: phase build's budget and
+    each named phase's, ``repeat`` times."""
+    return PHASE_BUDGETS["build"] + repeat * sum(PHASE_BUDGETS[p] for p in phases)
+
+
+def phase_fns(root: str, dev, card: str) -> dict:
+    """Each of ``REPEATABLE`` as a call of no arguments."""
+    fns = {name: functools.partial(globals()[f"{name}_phase"], dev, card)
+           for name in REPEATABLE}
+    fns["engines"] = functools.partial(engines_phase, root, dev, card)
+    fns["fs_bench"] = functools.partial(fs_bench_phase, card)
+    return fns
+
+
+def run_phases(watch: Watchdog, fns: dict, phases: list[str], repeat: int) -> None:
+    """``fns[name]()`` for each of ``phases`` in turn, ``repeat`` times:
+    each phase armed under its own budget with the launch counts from 0,
+    its record printed and its checks held (a failed one raises); after
+    each run, one line with each phase's seconds and each listing's ms
+    (the phase's cases named ``list*``)."""
+    import torch
+
+    from cubefs_tpu_torch.ops import _build
+
+    for run in range(repeat):
+        seconds, listing_ms = {}, {}
+        for name in phases:
+            watch.arm(name)
+            torch.cuda.empty_cache()
+            _build.reset_launches()
+            rec = fns[name]()
+            seconds[name] = watch.elapsed()
+            emit(rec)
+            failed = [k for k, v in rec["checks"].items() if not v]
+            if failed:
+                raise AssertionError(f"{name} checks failed in run {run}: {failed}")
+            cases = rec.get("cases")
+            if isinstance(cases, dict):
+                listing_ms.update({f"{name}.{case}": res["ms"] for case, res in cases.items()
+                                   if case.startswith("list")})
+        emit({"run": run, "phase_seconds": seconds, "listing_ms": listing_ms})
+
+
+def finish(watch: Watchdog, card: str) -> int:
+    """The script's last lines: the phases' seconds, the card's name and
+    power limit, and the result."""
+    import torch
+
+    watch.disarm()
+    emit({"phase_seconds": watch.seconds, "script_s": time.monotonic() - watch.t0})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
 
 
 def sharded_summary(run: dict, per_rank: list[dict]) -> dict:
@@ -2566,9 +2684,10 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
     the objects (kernel A encodes each tier PUT stack here); each tiered
     blob's parity, fetched from the blobnodes, must equal the plain
     version. An ``ObjectNode`` in this process over that ``FileSystem``
-    with the same users serves cold GETs, timed healthy and with one
-    blobnode process stopped (A rebuilds each blob that lost a data
-    unit). What the role answers for a tiered object (its
+    with the same users serves cold GETs, timed healthy (A decodes only
+    a blob whose hedged read ended on parity) and with one blobnode
+    process stopped (A rebuilds each blob that lost a data unit). What
+    the role answers for a tiered object (its
     ``FileSystem`` has no blob client: the object's size in zero bytes,
     a limit shared with the reference) is recorded and checked. Every
     role must exit 0 on SIGTERM. ``device`` is the roles' (None: the
@@ -2587,7 +2706,7 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
     from cubefs_tpu_torch.fs.objectnode import ObjectNode
     from cubefs_tpu_torch.ops import _build
     from cubefs_tpu_torch.runtime import fsnative
-    from cubefs_tpu_torch.utils import qos, rpc
+    from cubefs_tpu_torch.utils import metrics, qos, rpc
 
     class S3:
         """SigV4-signed requests to one gateway, one keep-alive
@@ -2645,6 +2764,32 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
     cases: dict[str, dict] = {}
     fs = node = None
     codes: dict = {}
+    timeline: dict[str, float] = {}  # seconds into the phase at the end of each step
+    terms: dict[str, dict] = {}  # each meta partition's raft term there: its elections
+    # each meta partition's leader there (a metanode's index) and each
+    # metanode's native read count; the view's order of each partition's
+    # replicas, which a client tries first to last
+    meta: dict[str, dict] = {}
+
+    def mark_meta(step: str) -> None:
+        stats = [rpc.call(addr, "stat")[0] for addr in roles["metanode"]]
+        meta[step] = {"leaders": {pid: i for i, st in enumerate(stats)
+                                  for pid, part in st["partitions"].items()
+                                  if part["role"] == "leader"},
+                      "native_read_ops": [st["native_read_ops"] for st in stats]}
+
+    def mark(step: str) -> None:
+        timeline[step] = time.perf_counter() - t_phase
+        by_pid: dict[str, int] = {}
+        for path in glob.glob(os.path.join(workdir, "meta*", "mp_*_raft", "meta.json")):
+            try:
+                with open(path) as f:
+                    term = json.load(f)["term"]
+            except (OSError, ValueError, KeyError):
+                continue  # being rewritten
+            pid = os.path.basename(os.path.dirname(path))[3:-5]
+            by_pid[pid] = max(term, by_pid.get(pid, 0))
+        terms[step] = by_pid
 
     def a_launches() -> int:
         return _build.LAUNCHES["gf_apply"]
@@ -2675,7 +2820,7 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
                 if e.tag.rsplit("}", 1)[-1] == tag]
 
     def list_v2(s3: S3, prefix: str, delimiter: str | None) -> dict:
-        keys, prefixes, pages, token = [], [], 0, None
+        keys, prefixes, pages, token, pages_ms = [], [], 0, None, []
         t = time.perf_counter()
         while True:
             q = {"list-type": "2", "max-keys": str(page), "prefix": prefix}
@@ -2683,7 +2828,10 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
                 q["delimiter"] = delimiter
             if token:
                 q["continuation-token"] = token
-            st, body, _ = s3.req("GET", "/bkt", query=urllib.parse.urlencode(q))
+            t_page = time.perf_counter()
+            with StallProbe(f"s3 ListObjectsV2 {q}", 15.0):
+                st, body, _ = s3.req("GET", "/bkt", query=urllib.parse.urlencode(q))
+            pages_ms.append((time.perf_counter() - t_page) * 1e3)
             if st != 200:
                 raise AssertionError(f"phase s3: ListObjectsV2 answered {st}: {body[:300]}")
             pages += 1
@@ -2693,12 +2841,14 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
                 break
             token = xml_texts(body, "NextContinuationToken")[0]
         return {"keys": len(keys), "distinct": len(set(keys)), "pages": pages,
-                "ms": (time.perf_counter() - t) * 1e3, "sorted": keys == sorted(keys)}
+                "ms": (time.perf_counter() - t) * 1e3, "pages_ms": pages_ms,
+                "sorted": keys == sorted(keys)}
 
     try:
         t = time.perf_counter()
         state = c.up()
         startup_s = time.perf_counter() - t
+        mark("up")
         roles = state["roles"]
         master, cmgr, gw = roles["master"][0], roles["clustermgr"][0], roles["objectnode"][0]
         s3 = S3(gw)
@@ -2711,6 +2861,12 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
                 raise AssertionError("phase s3: the first PUT never succeeded")
             time.sleep(0.2)
         election_s = time.perf_counter() - t
+        mark("elected")
+        mark_meta("elected")
+        index = {addr: i for i, addr in enumerate(roles["metanode"])}
+        meta["replica_order"] = {
+            mp["pid"]: [index.get(a, a) for a in mp.get("addrs") or [mp["addr"]]]
+            for mp in rpc.call(master, "client_view", {"name": state["volume"]})[0]["volume"]["mps"]}
 
         # -- large objects: 4 writers ---------------------------------------------
         big = [rng.integers(0, 256, obj_size, dtype=np.uint8).tobytes() for _ in range(objects)]
@@ -2733,6 +2889,7 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
             st == 206 and b == big[j // 3][spans[j % 3][0]:sum(spans[j % 3])]
             for j, (st, b, _) in enumerate(rgot))
         del rgot
+        mark("large")
 
         # -- multipart: 32 parts of 8 MiB from 4 threads -------------------------------
         whole = rng.integers(0, 256, multipart, dtype=np.uint8).tobytes()
@@ -2761,6 +2918,8 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
             and xml_texts(body_c, "ETag")[0].strip('"') == etag(h),
             "equal": st_g == 200 and got == whole}
         del whole, got, part_etags
+        mark("multipart")
+        mark_meta("multipart")
 
         # -- small objects: 8 threads x 128 of 4 KiB ----------------------------------
         n_small = small_threads * small
@@ -2783,8 +2942,12 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
         cases["get_small"]["equal"] = all(st == 200 and b == bodies[j % small_threads]
                                           for j, (st, b, _) in enumerate(got))
         del put, head, got
+        mark("small_ops")
+        mark_meta("small_ops")
         cases["list_v2"] = list_v2(s3, "small/", None)
         cases["list_v2_delimiter"] = list_v2(s3, "small/", "/")
+        mark("listed")
+        mark_meta("listed")
         deleted, t = 0, time.perf_counter()
         for lo in range(0, n_small, page):
             doc = "".join(f"<Object><Key>{key(j)[5:]}</Key></Object>"
@@ -2795,6 +2958,7 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
         cases["delete_objects"] = {"keys": n_small, "deleted": deleted, "batch": page,
                                    "seconds": time.perf_counter() - t}
         cases["list_after_delete"] = list_v2(s3, "small/", None)
+        mark("deleted")
 
         # -- refusals ---------------------------------------------------------------
         refusals = {
@@ -2815,6 +2979,7 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
                 b"<StorageClass>EC_COLD</StorageClass></Transition></Rule>"
                 b"</LifecycleConfiguration>")
         lifecycle_put = s3.req("PUT", "/bkt", rule, query="lifecycle")[0]
+        mark("cold_put")
         view = rpc.call(master, "client_view", {"name": state["volume"]})[0]["volume"]
         pool = rpc.NodePool()
         acfg = AccessConfig(blob_size=blob_size, engine="cuda", device=dev)
@@ -2844,7 +3009,9 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
         mode = cm.CodeMode(locs[0]["codemode"])
         tac = cm.tactic(mode)
         vols = tiered_volumes(cmgr, locs)
+        mark("migrated")
         parity_equal = tiered_parity_equal(vols, locs, tac.n, tac.m)
+        mark("parity")
 
         store = authnode.UserStore()
         for u in users:
@@ -2856,14 +3023,17 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
 
         def cold_gets(label: str) -> None:
             a0, ms, ok = a_launches(), [], []
+            d0 = metrics.reconstruct_reads.value(path="global")
             for k, want in zip(cold_keys, cold):
                 t = time.perf_counter()
                 st, b, _ = local.req("GET", f"/bkt/{k}")
                 ms.append((time.perf_counter() - t) * 1e3)
                 ok.append(st == 200 and b == want)
             cases[label] = {"objects": tier, "ms_runs": ms, "ms": statistics.median(ms),
-                            "a_launches": a_launches() - a0, "equal": all(ok)}
+                            "a_launches": a_launches() - a0, "equal": all(ok),
+                            "decodes": metrics.reconstruct_reads.value(path="global") - d0}
         cold_gets("cold_get")
+        mark("cold_get")
 
         # -- one blobnode process stopped: degraded cold GETs ----------------------
         stopped, blob_victim_exit, lost_data_blobs = stop_a_blobnode(
@@ -2871,6 +3041,7 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
         cold_gets("degraded_cold_get")
         cases["degraded_cold_get"].update({"stopped": stopped,
                                            "blobs_lost_a_data_unit": lost_data_blobs})
+        mark("degraded_cold_get")
 
         # -- the role's answer for a tiered object: the shared limit -------------------
         st, b, h = s3.req("GET", f"/bkt/{cold_keys[0]}")
@@ -2884,6 +3055,7 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
             for cl in (*fs.meta._packet_clients.values(), *fs.data._packet_clients.values()):
                 cl.close()
         codes = c.down()
+        mark("down")
         shutil.rmtree(workdir, ignore_errors=True)
         qos.DEFAULT._tracker, qos.DEFAULT._levels, qos.DEFAULT._last_refresh = gate
         for k, v in saved_env.items():
@@ -2918,7 +3090,11 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
         "tier_launched_a_per_object": k["migrate"]["a_launches"] >= tier,
         "parity_equals_plain": bool(parity_equal) and all(parity_equal),
         "cold_get.equal": k["cold_get"]["equal"],
-        "cold_get_launched_no_a": k["cold_get"]["a_launches"] == 0,
+        # a healthy GET reads the data units; one whose data unit straggles
+        # past the access layer's hedge (50 ms) decodes the first n units
+        # to arrive, parity among them: A once a decode, and never else
+        "cold_get_launched_a_per_hedged_decode":
+            k["cold_get"]["a_launches"] == k["cold_get"]["decodes"],
         "degraded_cold_get.equal": k["degraded_cold_get"]["equal"],
         "degraded_launched_a_per_lost_blob": lost_data_blobs > 0
         and k["degraded_cold_get"]["a_launches"] >= lost_data_blobs,
@@ -2935,6 +3111,7 @@ def s3_phase(dev, card: str, *, objects: int = S3_OBJECTS, obj_size: int = S3_OB
                         "small_size": small_size, "page": page, "tiered": tier,
                         "blob_size": blob_size, "codemode": mode.name,
                         "blob_shard": -(-blob_size // tac.n)},
+            "timeline": timeline, "raft_terms": terms, "metanodes": meta,
             "cases": cases, "refusals": refusals, "role_tiered_get": role_tiered,
             "parity_blobs": len(parity_equal), "exit_codes": {**codes},
             "launches": launches, "checks": checks}
@@ -4973,13 +5150,15 @@ def fs_bench_phase(card: str, *, runs=FS_BENCH_RUNS, timeout: float = 300.0) -> 
     return rec
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    args = parse_args(sys.argv[1:] if argv is None else argv)
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
-    watch = Watchdog(PHASE_BUDGETS, SCRIPT_BUDGET)
+    watch = Watchdog(PHASE_BUDGETS, SCRIPT_BUDGET if args.phases is None
+                     else repeat_budget(args.phases, args.repeat))
     watch.arm("build")  # the imports below included
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -5045,6 +5224,9 @@ def main() -> int:
           "per_kernel_s": {k: round(v, 3) for k, v in build_s.items()}, "host_libs": host_libs,
           "ptxas": ptxas, "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0)})
+    if args.phases is not None:
+        run_phases(watch, phase_fns(root, dev, card), args.phases, args.repeat)
+        return finish(watch, card)
 
     watch.arm("gf_apply")
     # -- 2. gf_apply vs plain ------------------------------------------------
@@ -6183,12 +6365,7 @@ def main() -> int:
           for rec, replaces in ((bm_main, "benchmarks/pallas_tuning.py:41"),
                                 (probe_main, "benchmarks/pallas_tuning2.py:56"))),
     ]})
-    watch.disarm()
-    emit({"phase_seconds": watch.seconds, "script_s": time.monotonic() - watch.t0})
-    print(card, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
+    return finish(watch, card)
 
 
 if __name__ == "__main__":

@@ -79,7 +79,6 @@ serves on.
 from __future__ import annotations
 
 import argparse
-import faulthandler
 import json
 import signal
 import sys
@@ -429,6 +428,23 @@ def shutdown(srv, svc) -> int:
     return rc
 
 
+def write_stacks(signum=None, frame=None) -> None:
+    """Every thread's stack to stderr, most recent call first. A Python
+    signal handler runs on the main thread with the interpreter lock held,
+    so no frame changes under it; faulthandler's handler walks the threads'
+    frames while they run, and a role whose threads are busy can crash in
+    it (SIGSEGV)."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    out = []
+    for ident, top in sys._current_frames().items():
+        out.append(f"Thread {ident:#018x} ({names.get(ident, '?')}, most recent call first):")
+        out += [f'  File "{f.filename}", line {f.lineno} in {f.name}'
+                for f in reversed(traceback.extract_stack(top))]
+        out.append("")
+    sys.stderr.write("\n".join(out) + "\n")
+    sys.stderr.flush()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="cubefs-tpu-torch-server")
     ap.add_argument("-c", "--config", required=True, help="JSON config file")
@@ -436,7 +452,7 @@ def main(argv=None) -> int:
     with open(args.config) as f:
         cfg = json.load(f)
     stop = threading.Event()
-    faulthandler.register(signal.SIGUSR1, all_threads=True)
+    signal.signal(signal.SIGUSR1, write_stacks)
     signal.signal(signal.SIGTERM, lambda *a: stop.set())
     signal.signal(signal.SIGINT, lambda *a: stop.set())
     srv, svc = run_role(cfg)

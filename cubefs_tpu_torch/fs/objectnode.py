@@ -9,7 +9,10 @@ adapter performs). Signature validation (V4) is pluggable via an
 authenticator callable; the default accepts all (auth service lands with
 the authnode component).
 
-The port's copy of ``cubefs_tpu/fs/objectnode.py``.
+The port's copy of ``cubefs_tpu/fs/objectnode.py``. Its server listens
+with a backlog of 128 and sets ``TCP_NODELAY``, as the port's
+``RpcServer`` does; the reference keeps socketserver's backlog of 5 and
+Nagle's algorithm.
 """
 
 from __future__ import annotations
@@ -28,6 +31,12 @@ from . import s3policy
 from . import s3version
 from ..utils import qos
 from .client import FileSystem, FsError
+
+
+class _Server(ThreadingHTTPServer):
+    # socketserver's default backlog of 5 drops the SYNs of a burst of new
+    # connections, and each dropped one waits out a 1 s retransmit
+    request_queue_size = 128
 
 
 def _http_date(unix: float) -> str:
@@ -70,6 +79,10 @@ class ObjectNode:
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
+            # a reply is two writes (headers, then body): with Nagle on, a
+            # body under one segment waits for the client's delayed ACK of
+            # the headers, ~40 ms a small GET
+            disable_nagle_algorithm = True
 
             def log_message(self, *a):
                 pass
@@ -1267,7 +1280,7 @@ class ObjectNode:
                     return self._error(404, "NoSuchKey", key)
                 self._reply(204)
 
-        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self._httpd = _Server((host, port), Handler)
         self._httpd.daemon_threads = True
         self.addr = f"{host}:{self._httpd.server_address[1]}"
         self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)

@@ -27,6 +27,7 @@ Tolerance: exact equality. Every wait is a condition polled against a
 deadline.
 """
 
+import errno
 import inspect
 import json
 import subprocess
@@ -279,6 +280,26 @@ def wait_for(cond, timeout=20.0, what="condition"):
         time.sleep(0.05)
 
 
+def first_mkdir(fs, path, timeout=20.0):
+    """The first ``fs.mkdir(path)`` of a fresh volume, tried again while
+    its partitions elect their leaders (``wait_for``). A try that raised
+    may still have landed: a commit whose reply was lost or timed out.
+    The next try is a new operation and answers EEXIST, so after a failed
+    try EEXIST is that try's directory."""
+    failed = []
+
+    def attempt():
+        try:
+            fs.mkdir(path)
+        except Exception as e:
+            if failed and getattr(e, "errno", None) == errno.EEXIST:
+                return True
+            failed.append(e)
+            raise
+        return True
+    return wait_for(attempt, timeout, what=f"the first mkdir of {path}")
+
+
 def payloads(seed, sizes):
     rng = np.random.default_rng(seed)
     return [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in sizes]
@@ -353,7 +374,7 @@ def test_mixed_cluster_reads_the_other_package_writes(cluster_pkg, ref, tmp_path
     try:
         for name in ("port", "ref"):
             clients[name] = pkgs[name].FileSystem(c.view, pkgs[name].rpc.NodePool())
-        wait_for(lambda: clients[cluster_pkg].mkdir("/mix"), what="the first mkdir")
+        first_mkdir(clients[cluster_pkg], "/mix")
         data = dict(zip(("a", "b"), payloads(7, [(1 << 20) + 12_345, 70_001])))
         clients[other].write_file("/mix/from_other", data["a"])
         clients[cluster_pkg].write_file("/mix/from_cluster", data["b"])
@@ -528,7 +549,7 @@ def drive(pkg, root) -> dict:
     c = pkg.FsCluster(root)
     try:
         fs = c.fs
-        wait_for(lambda: fs.mkdir("/w"), what="the first mkdir")
+        first_mkdir(fs, "/w")
         data = payloads(5, [0, 1, 4096, 300_001, (1 << 20) + 3])
         reads = lambda: sum(d._native_lib.ds_op_count(d._native_h)  # noqa: E731
                             for d in c.datas if d._native_h is not None)
@@ -585,7 +606,7 @@ def verify_reads(pkg, root, monkeypatch) -> dict:
     monkeypatch.setenv("CUBEFS_NATIVE_DATA", "0")
     c = pkg.FsCluster(root)
     try:
-        wait_for(lambda: c.fs.mkdir("/v"), what="the first mkdir")
+        first_mkdir(c.fs, "/v")
         payload = payloads(9, [120_000])[0]
         c.fs.write_file("/v/rot.bin", payload)
         ek = c.fs.meta.inode_get(c.fs.resolve("/v/rot.bin"))["extents"][0]

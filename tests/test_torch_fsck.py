@@ -21,6 +21,7 @@ Tolerance: exact equality.
 """
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -31,7 +32,8 @@ from cubefs_tpu_torch.fs import scrub as port_scrub
 from cubefs_tpu_torch.tool import scrub_ab
 from cubefs_tpu_torch.utils.retry import FakeClock
 from test_torch_blob import _isolated  # noqa: F401  (autouse fixture)
-from test_torch_fs import FS_E2E, PORT, WireFs, _close, _port_qos_still, ref, wait_for  # noqa: F401
+from test_torch_fs import (FS_E2E, PORT, WireFs, _close, _port_qos_still,  # noqa: F401
+                           first_mkdir, ref)
 from test_torch_raft import port_copy, run_scenario, scenarios
 from test_torch_scrub import INTEGRITY_SCENARIOS, port_cluster
 
@@ -98,7 +100,7 @@ def test_both_fscks_give_equal_summaries_on_one_cluster(ref, tmp_path):
 
     try:
         rng = np.random.default_rng(18)
-        wait_for(lambda: fss["port"].mkdir("/d"), what="the first mkdir")
+        first_mkdir(fss["port"], "/d")
         fss["port"].write_file("/d/a.bin", rng.integers(0, 256, 150_000, np.uint8).tobytes())
         fss["ref"].write_file("/d/b.bin", rng.integers(0, 256, 90_001, np.uint8).tobytes())
         fss["port"].write_file("/top.bin", b"hello fsck")
@@ -134,7 +136,7 @@ def test_either_scrubber_heals_a_port_cluster_through_the_one_healer(pkg, ref, t
     c = WireFs(PORT, tmp_path)
     fs = p.FileSystem(c.view, p.rpc.NodePool())
     try:
-        wait_for(lambda: fs.mkdir("/s"), what="the first mkdir")
+        first_mkdir(fs, "/s")
         fs.write_file("/s/a.bin", bytes(range(256)) * 400)
         fs.write_file("/s/b.bin", b"b" * 70_000)
         port_fs = PORT.FileSystem(c.view, PORT.rpc.NodePool())
@@ -194,9 +196,22 @@ def test_scrub_ab_legs(tmp_path, monkeypatch):
 
 def test_scrub_ab_writes_no_file_unless_asked(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
+    # main pins the Python read plane for its process (setdefault, as the
+    # reference's does): set here, the switch is taken back after the test
+    monkeypatch.setenv("CUBEFS_NATIVE_DATA", "0")
     monkeypatch.setattr(scrub_ab, "FILES", 2)
     monkeypatch.setattr(scrub_ab, "READS", 10)
     scrub_ab.main([])
     assert list(tmp_path.iterdir()) == []
     assert '"bench": "SCRUB_AB"' in capsys.readouterr().out
 
+
+
+def test_the_scrub_ab_main_test_leaves_the_environment_as_it_found_it(tmp_path, capsys):
+    """A ``CUBEFS_NATIVE_DATA=0`` left behind turns off the native read
+    plane of every DataNode built later in the same test process, and
+    ``WireFs`` (the S3 mixed tests' clusters) refuses a node without it."""
+    before = os.environ.get("CUBEFS_NATIVE_DATA")
+    with pytest.MonkeyPatch.context() as mp:
+        test_scrub_ab_writes_no_file_unless_asked(tmp_path, mp, capsys)
+    assert os.environ.get("CUBEFS_NATIVE_DATA") == before

@@ -24,6 +24,7 @@ import json
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -33,7 +34,8 @@ from cubefs_tpu_torch.blob import blobnode, scheduler
 from cubefs_tpu_torch.deploy import cluster as deploy
 from cubefs_tpu_torch.tool import snapshot
 from cubefs_tpu_torch.utils import metrics, rpc
-from test_torch_fs import FS_E2E, PORT, WireFs, _close, _port_qos_still, ref, wait_for  # noqa: F401
+from test_torch_fs import (FS_E2E, PORT, WireFs, _close, _port_qos_still, both,  # noqa: F401
+                           first_mkdir, ref, wait_for)
 from test_torch_raft import port_copy, run_scenario, scenarios
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -218,7 +220,7 @@ def test_a_snapshot_restores_in_the_other_package(exporter, ref, tmp_path):
     c = WireFs(PORT, tmp_path)
     fs = PORT.FileSystem(c.view, PORT.rpc.NodePool())
     try:
-        wait_for(lambda: fs.mkdir("/keep"), what="the first mkdir")
+        first_mkdir(fs, "/keep")
         for i, data in enumerate((b"alpha", b"beta" * 1000, bytes(range(256)) * 300)):
             fs.write_file(f"/keep/f{i}", data)
         fs.rename("/keep/f0", "/keep/renamed")
@@ -245,6 +247,44 @@ def test_a_snapshot_restores_in_the_other_package(exporter, ref, tmp_path):
             restored[name] = _partition_states(mn_mod, manifest, root)
         assert restored["port"] == restored["ref"]
         assert restored["port"] == {pid: live[pid] for pid in restored["port"]}
+    finally:
+        _close(fs)
+        c.stop()
+
+
+@pytest.mark.parametrize("pkg", ["port", "ref"])
+def test_a_first_mkdir_whose_commit_times_out_after_it_lands(pkg, ref, tmp_path):
+    """The snapshot test's first mkdir, with the root partition's raft
+    appends held 5.5 s by ``faultinject`` while it is first tried: its
+    leader answers 500 ``entry N not committed in time`` (raft's 5 s) and
+    the entry lands after, in either package's cluster and client. Every
+    later try is a new operation and answers EEXIST: a wait for a mkdir
+    that succeeds runs out on it; ``first_mkdir`` takes it, after the
+    failed try, as the directory that try made."""
+    p = both(ref)[pkg]
+    c = WireFs(p, tmp_path)
+    fs = p.FileSystem(c.view, p.rpc.NodePool())
+    tried = []
+
+    def mkdir_first_held(path):
+        if path in tried:
+            return fs.mkdir(path)
+        tried.append(path)
+        held = p.faultinject.FaultPlan(seed=1).on(method="raft_mp1_append", kind="delay",
+                                                  delay=5.5)
+        with p.faultinject.installed(held):
+            with pytest.raises(p.rpc.RpcError, match="500.*not committed in time"):
+                fs.mkdir(path)
+        raise FileNotFoundError(f"{path}: the first try failed")
+
+    try:
+        wait_for(lambda: fs.meta.inode_get(1), what="the root partition's leader")
+        with pytest.raises(AssertionError, match="first mkdir: .*'waited' exists"):
+            wait_for(lambda: mkdir_first_held("/waited"), timeout=14.0, what="the first mkdir")
+        assert first_mkdir(types.SimpleNamespace(mkdir=mkdir_first_held), "/keep")
+        assert tried == ["/waited", "/keep"]
+        assert sorted(fs.readdir("/")) == ["keep", "waited"]
+        assert fs.meta.inode_get(fs.resolve("/keep"))["type"] == "dir"
     finally:
         _close(fs)
         c.stop()
