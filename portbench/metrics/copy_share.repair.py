@@ -1,0 +1,3 @@
+"""Host-device copies over device busy time in the traced window, in %."""
+
+from portbench.readers import copy_share as read  # noqa: F401
